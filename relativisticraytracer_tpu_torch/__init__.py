@@ -1,0 +1,33 @@
+"""relativisticraytracer_tpu_torch — the relativistic black-hole renderer
+on PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of relativisticraytracer_tpu (JAX/Pallas), which stays the
+reference. The default frame program runs the record, replay and sky
+kernels (csrc/) on a CUDA device and their plain PyTorch versions on the
+CPU; the renderer's explicit `device` decides which.
+"""
+
+from relativisticraytracer_tpu_torch.config import (
+    DEFAULT_SCENE,
+    CameraEffects,
+    RenderSettings,
+    SceneConfig,
+)
+from relativisticraytracer_tpu_torch.render.camera import (
+    CameraState,
+    camera_state_from_pose,
+)
+from relativisticraytracer_tpu_torch.render.pipeline import Renderer, render_frame
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SceneConfig",
+    "CameraEffects",
+    "RenderSettings",
+    "DEFAULT_SCENE",
+    "CameraState",
+    "camera_state_from_pose",
+    "Renderer",
+    "render_frame",
+]

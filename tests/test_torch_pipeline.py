@@ -1,0 +1,128 @@
+"""PyTorch port: whole frames on the CPU against the committed goldens and
+the JAX package's frames.
+
+The goldens (tests/goldens/*.npy) are the JAX package's CPU frames of the
+cases in bench.py:49-65, gated at RMSE < 1e-3 (bench.py:84-89). The sky is
+the JAX-made starfield committed as tests/torch_data/starfield_64x128.npy.
+Measured RMSE of the port's CPU frames (Renderer(device="cpu"), the record
+/replay/sky path): schwarzschild_vacuum 4.1e-5, kerr09_vacuum 0,
+disk_only 7.1e-5, full_scene_fx 7.1e-5, offaxis_full_192x108 5.2e-5,
+full_budget_192x108 3.9e-5, full_scene_512 2.9e-4 — the last is one pixel
+whose luma sits at the bloom threshold (0.80002 vs 0.8), 37 levels off;
+every other pixel of that frame is within 1 level. The expected level for
+the rest is ~8e-5, what the JAX package's own frames show across
+backends."""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from relativisticraytracer_tpu.config import CameraEffects as JEffects
+from relativisticraytracer_tpu.config import RenderSettings as JSettings
+from relativisticraytracer_tpu.config import SceneConfig as JScene
+from relativisticraytracer_tpu.config import effects_off as j_effects_off
+from relativisticraytracer_tpu.render import camera as jcam
+from relativisticraytracer_tpu.render.pipeline import Renderer as JRenderer
+from relativisticraytracer_tpu_torch.config import CameraEffects as TEffects
+from relativisticraytracer_tpu_torch.config import RenderSettings as TSettings
+from relativisticraytracer_tpu_torch.config import SceneConfig as TScene
+from relativisticraytracer_tpu_torch.config import effects_off as t_effects_off
+from relativisticraytracer_tpu_torch.render import camera as tcam
+from relativisticraytracer_tpu_torch.render.pipeline import Renderer, render_frame
+from relativisticraytracer_tpu_torch.render.skybox import skybox_from_array
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SKY = np.load(ROOT / "torch_data" / "starfield_64x128.npy")
+POSE = ((0.0, 5.0, -38.0), 0.0, -6.0)
+
+# name: (scene kwargs, effects on, (w, h), pose, time, max_steps)
+GOLDENS = {
+    "schwarzschild_vacuum": (dict(enable_disk=False, enable_clouds=False), False,
+                             (64, 48), POSE, 2.0, 400),
+    "kerr09_vacuum": (dict(enable_disk=False, enable_clouds=False, spin_a=0.9), False,
+                      (64, 48), POSE, 2.0, 400),
+    "disk_only": (dict(enable_clouds=False), False, (64, 48), POSE, 2.0, 400),
+    "full_scene_fx": (dict(), True, (64, 48), POSE, 2.0, 400),
+    "offaxis_full_192x108": (dict(), True, (192, 108),
+                             ((-18.0, -5.0, -38.0), 18.0, 4.0), 7.0, 400),
+    "full_scene_512": (dict(), True, (512, 512), POSE, 2.0, 400),
+    "full_budget_192x108": (dict(), True, (192, 108),
+                            ((0.0, 10.0, -60.0), 0.0, -10.0), 10.0, 2000),
+}
+SLOW = ("full_scene_512", "full_budget_192x108")
+
+
+def _rmse(a, b) -> float:
+    d = a[..., :3].astype(np.int64) - b[..., :3].astype(np.int64)
+    return float(np.sqrt(np.mean((d / 255.0) ** 2)))
+
+
+@pytest.mark.parametrize("name", [
+    pytest.param(n, marks=pytest.mark.slow) if n in SLOW else n for n in GOLDENS])
+def test_golden_frames(name):
+    kw, fx_on, (w, h), pose, t, steps = GOLDENS[name]
+    r = Renderer(TScene(max_steps=steps, **kw),
+                 TSettings(width=w, height=h, max_steps=steps),
+                 skybox_rgba=SKY, device="cpu")
+    got = r.render_np(tcam.camera_state_from_pose(*pose),
+                      TEffects() if fx_on else t_effects_off(), t)
+    assert got.dtype == np.uint8 and got.shape == (h, w, 4)
+    assert (got[..., 3] == 255).all()
+    e = _rmse(got, np.load(ROOT / "goldens" / f"{name}.npy"))
+    assert e < 1e-3, f"golden {name}: RMSE {e}"
+
+
+def _jax_frame(scene_kw, settings_kw, pose, effects, t, sky=True):
+    r = JRenderer(JScene(**scene_kw), JSettings(loop="while", **settings_kw),
+                  skybox_rgba=SKY if sky else None)
+    return r.render_np(jcam.camera_state_from_pose(*pose), effects, t)
+
+
+def test_supersample_matches_jax_render_frame():
+    """SSAA 2x: rays on the (2H, 2W) grid, box-filtered after tone mapping
+    (downsample sums may round differently: bytes within 1 level)."""
+    settings = dict(width=32, height=24, max_steps=40, supersample=2)
+    want = _jax_frame(dict(max_steps=40), settings, POSE, j_effects_off(), 1.0)
+    r = Renderer(TScene(max_steps=40), TSettings(**settings), skybox_rgba=SKY,
+                 device="cpu")
+    got = r.render_np(tcam.camera_state_from_pose(*POSE), t_effects_off(), 1.0)
+    assert got.shape == want.shape == (24, 32, 4)
+    assert _rmse(got, want) < 1e-3
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("scene_kw,sky", [
+    (dict(enable_disk=False, enable_clouds=False), True),   # no medium
+    (dict(), False),                                        # no sky
+])
+def test_record_path_without_medium_or_sky_matches_jax(scene_kw, sky):
+    """Where the JAX package falls back to its inline kernel (no sky, or
+    no medium) the port keeps the record path: nothing recorded gives
+    I = 0, T = 1, and no sky gives bg = 0."""
+    settings = dict(width=48, height=32, max_steps=160)
+    pose = ((0.0, 3.0, -30.0), 0.0, -6.0)
+    want = _jax_frame(dict(max_steps=160, **scene_kw), settings, pose, JEffects(), 0.5,
+                      sky=sky)
+    r = Renderer(TScene(max_steps=160, **scene_kw), TSettings(**settings),
+                 skybox_rgba=SKY if sky else None, device="cpu")
+    got = r.render_np(tcam.camera_state_from_pose(*pose), TEffects(), 0.5)
+    assert _rmse(got, want) < 1e-3
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_plain_render_frame_matches_compact_frame():
+    """render_frame (the plain march) and the default record/replay frame
+    agree byte for byte here; both are plain PyTorch on the CPU."""
+    scene = TScene(max_steps=160)
+    settings = TSettings(width=48, height=32, max_steps=160)
+    cam = tcam.camera_state_from_pose(*POSE)
+    sky = skybox_from_array(SKY, "cpu")
+    a = render_frame(scene, settings, cam, TEffects(), 2.0, sky, device="cpu")
+    b = Renderer(scene, settings, skybox=sky, device="cpu").render(cam, TEffects(), 2.0)
+    assert a.dtype == torch.uint8 and a.shape == (32, 48, 4)
+    assert int((a.int() - b.int()).abs().max()) <= 1
+    assert _rmse(a.numpy(), b.numpy()) < 1e-4
