@@ -2,9 +2,9 @@
 on PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of relativisticraytracer_tpu (JAX/Pallas), which stays the
-reference. The default frame program runs the record, replay and sky
-kernels (csrc/) on a CUDA device and their plain PyTorch versions on the
-CPU; the renderer's explicit `device` decides which.
+reference. The frame programs run the record, replay, sky and fused
+march kernels (csrc/) on a CUDA device, the default, and their plain
+PyTorch versions on the CPU when the caller asks for it.
 """
 
 from relativisticraytracer_tpu_torch.config import (

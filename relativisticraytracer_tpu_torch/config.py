@@ -180,9 +180,8 @@ class RenderSettings:
     `chunk`, `media_capacity` and `sky_gather` are accepted and validated
     but select nothing: the renderer's device picks kernels or plain
     versions, the replay's compaction has dynamic shapes, and the sky is a
-    direct per-pixel gather. `media_pass="inline"` is valid here but the
-    frame path raises NotImplementedError for it until the inline kernel is
-    ported."""
+    direct per-pixel gather. `media_pass` picks the frame program:
+    "compact" (record + replay) or "inline" (the fused march)."""
 
     width: int = WINDOW_WIDTH
     height: int = WINDOW_HEIGHT

@@ -1,7 +1,9 @@
-// Shared __device__ physics of the record and replay kernels.
+// Shared __device__ ray generation, physics and sky addressing of the
+// record, replay and fused march kernels.
 //
-// Record (record.cu) and replay (replay.cu) must march bitwise the same
-// trajectory, and both must match the plain PyTorch versions
+// Record (record.cu), replay (replay.cu) and the fused march (march.cu)
+// must march bitwise the same trajectory, and all must match the plain
+// PyTorch versions
 // (render/march.py, physics/, media/, core/ of this package, themselves
 // transcriptions of relativisticraytracer_tpu). So every function here is
 // written op for op in the JAX package's order, and the library is built
@@ -84,6 +86,52 @@ __device__ __forceinline__ V3 normalize3(V3 v) {
 }
 
 __device__ __forceinline__ float clip01(float t) { return fminf(fmaxf(t, 0.0f), 1.0f); }
+
+// ---------------------------------------------------------------- camera
+struct CamScalars {
+    // [time, pos(3), forward(3), right(3), up(3), use_ld, ld_k, ca_eff]
+    float s[16];
+};
+
+// Where a launch's pixels sit in the full image (the shard origin and
+// strip maps of pallas_march._gen_tile_rays): local pixel (lx, ly) renders
+// global pixel (x0 + X(lx), y0 + Y(ly)) of an img_w x img_h frame, where
+// Y(r) = (r / sh) * ystride + r % sh with row strips (sh > 0) and Y(r) = r
+// without (sh = 0); X likewise with (sw, xstride). Integer-valued float
+// adds below 2^24 are exact, so a shard's rays are bitwise the full
+// frame's. The identity (origin 0, no strips, the launch's own size) is a
+// single-device frame.
+struct RayGrid {
+    float x0, y0;
+    int img_w, img_h;
+    int sh, ystride;
+    int sw, xstride;
+};
+
+// render/camera.generate_rays for one pixel: uv by division (not a
+// reciprocal), optional barrel pre-warp, NDC with aspect on u only,
+// rd = normalize(forward + u*right + v*up), origin at the camera.
+__device__ __forceinline__ void gen_ray(const CamScalars& cam, const RayGrid& g, int lx, int ly,
+                                        V3& p, V3& v) {
+    const float* s = cam.s;
+    if (g.sh > 0) ly = (ly / g.sh) * g.ystride + ly % g.sh;
+    if (g.sw > 0) lx = (lx / g.sw) * g.xstride + lx % g.sw;
+    float uvx = ((float)lx + g.x0) / (float)g.img_w;
+    float uvy = ((float)ly + g.y0) / (float)g.img_h;
+    if (s[13] > 0.5f) {  // lens distortion (postfx.apply_lens_distortion)
+        float tx = uvx - 0.5f, ty = uvy - 0.5f;
+        float r2 = tx * tx + ty * ty;
+        float f = 1.0f + r2 * s[14];
+        uvx = tx * f + 0.5f;
+        uvy = ty * f + 0.5f;
+    }
+    float aspect = (float)g.img_w / (float)g.img_h;
+    float u = (uvx * 2.0f - 1.0f) * aspect;
+    float vv = uvy * 2.0f - 1.0f;
+    v = normalize3(v3(s[4] + u * s[7] + vv * s[10], s[5] + u * s[8] + vv * s[11],
+                      s[6] + u * s[9] + vv * s[12]));
+    p = v3(s[1], s[2], s[3]);
+}
 
 // ---------------------------------------------------------------- fastmath
 // core/fastmath.atan2: degree-8 minimax polynomial, coefficients rounded
@@ -370,4 +418,45 @@ static __device__ void cloud_block(const SceneConsts& c, V3 rel, float r2, V3 vn
     eg = eg + 0.65f * cloud_i * (0.8f + shift * 0.3f);
     eb = eb + 0.80f * cloud_i * (0.6f + shift * 0.8f);
     op = op + d_cloud * c.cloud_opacity;
+}
+
+// ---------------------------------------------------------------- sky
+// render/skybox.sky_coords_from_uv: wrap-U, clamp-V, the sample at
+// (u*W - 0.5, v*H - 0.5) -> flat quad index and bilinear fractions
+__device__ __forceinline__ void sky_coords_from_uv(int h, int w, float tx, float ty, int& idx,
+                                                   float& fx, float& fy) {
+    float ux = (tx - floorf(tx)) * (float)w;
+    float vy = clip01(ty) * (float)h;
+    float xb = ux - 0.5f;
+    float yb = vy - 0.5f;
+    float x0 = floorf(xb);
+    float y0 = floorf(yb);
+    fx = xb - x0;
+    fy = yb - y0;
+    int x0i = (int)x0;
+    x0i = x0i < 0 ? x0i + w : x0i;
+    int yq = (int)y0 + 1;
+    idx = yq * w + x0i;
+}
+
+// render/skybox.sky_coords of the normalized final velocity: per channel
+// (r, g, b) the quad index and fractions, written to plane ch of the
+// [3, n] outputs; `ca` is the effective chromatic-aberration offset.
+__device__ __forceinline__ void write_sky_coords(V3 vel, float ca, int sky_h, int sky_w,
+                                                 size_t n, size_t pix, int* idx_out,
+                                                 float* fx_out, float* fy_out) {
+    V3 d = normalize3(vel);
+    float phi = atan2_poly(d.z, d.x);
+    float theta = arcsin_poly(d.y);
+    float ty = 0.5f - theta / 0x1.921fb6p+1f;  // PI = 3.1415926535
+    const float offs[3] = {ca, 0.0f, -ca};
+    for (int ch = 0; ch < 3; ++ch) {
+        float tx = 0.5f + (phi + offs[ch]) / 0x1.921fb6p+2f;  // 2 * PI
+        int idx;
+        float fx, fy;
+        sky_coords_from_uv(sky_h, sky_w, tx, ty, idx, fx, fy);
+        idx_out[(size_t)ch * n + pix] = idx;
+        fx_out[(size_t)ch * n + pix] = fx;
+        fy_out[(size_t)ch * n + pix] = fy;
+    }
 }

@@ -22,35 +22,15 @@
 // merges gaps inside each 40-step block, which replays to the same (I, T):
 // gap steps contribute exact zeros). Slot-overflow merging and the
 // end-of-loop flush `len = i - entry` are kept. The per-pixel total length
-// feeds the replay's compaction.
+// feeds the replay's compaction. A shard of a spatially tiled frame passes
+// its origin and strip maps in the RayGrid (march_common.cuh::gen_ray).
 #include <cuda_runtime.h>
 
 #include "march_common.cuh"
 
-struct CamScalars {
-    // [time, pos(3), forward(3), right(3), up(3), use_ld, ld_k, ca_eff]
-    float s[16];
-};
-
-__device__ __forceinline__ void sky_coords_from_uv(int h, int w, float tx, float ty, int& idx,
-                                                   float& fx, float& fy) {
-    float ux = (tx - floorf(tx)) * (float)w;
-    float vy = clip01(ty) * (float)h;
-    float xb = ux - 0.5f;
-    float yb = vy - 0.5f;
-    float x0 = floorf(xb);
-    float y0 = floorf(yb);
-    fx = xb - x0;
-    fy = yb - y0;
-    int x0i = (int)x0;
-    x0i = x0i < 0 ? x0i + w : x0i;
-    int yq = (int)y0 + 1;
-    idx = yq * w + x0i;
-}
-
 __global__ void __launch_bounds__(256) record_kernel(
-    SceneConsts c, CamScalars cam, int width, int height, int max_steps, int slots, int sky_h,
-    int sky_w, float* __restrict__ hit_out, int* __restrict__ idx_out,
+    SceneConsts c, CamScalars cam, RayGrid g, int width, int height, int max_steps, int slots,
+    int sky_h, int sky_w, float* __restrict__ hit_out, int* __restrict__ idx_out,
     float* __restrict__ fx_out, float* __restrict__ fy_out, float* __restrict__ rec,
     float* __restrict__ total_out) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -58,24 +38,9 @@ __global__ void __launch_bounds__(256) record_kernel(
     if (x >= width || y >= height) return;
     const int n = width * height;
     const int pix = y * width + x;
-    const float* s = cam.s;
 
-    // ---- ray generation (render/camera.generate_rays semantics)
-    float uvx = (float)x / (float)width;  // division, not a reciprocal
-    float uvy = (float)y / (float)height;
-    if (s[13] > 0.5f) {  // lens distortion (postfx.apply_lens_distortion)
-        float tx = uvx - 0.5f, ty = uvy - 0.5f;
-        float r2 = tx * tx + ty * ty;
-        float f = 1.0f + r2 * s[14];
-        uvx = tx * f + 0.5f;
-        uvy = ty * f + 0.5f;
-    }
-    float aspect = (float)width / (float)height;
-    float u = (uvx * 2.0f - 1.0f) * aspect;
-    float vv = uvy * 2.0f - 1.0f;
-    V3 v = normalize3(v3(s[4] + u * s[7] + vv * s[10], s[5] + u * s[8] + vv * s[11],
-                         s[6] + u * s[9] + vv * s[12]));
-    V3 p = v3(s[1], s[2], s[3]);
+    V3 p, v;
+    gen_ray(cam, g, x, y, p, v);
 
     for (int j = 0; j < slots * 7; ++j) rec[(size_t)j * n + pix] = 0.0f;
 
@@ -132,31 +97,21 @@ __global__ void __launch_bounds__(256) record_kernel(
     hit_out[pix] = hit ? 1.0f : 0.0f;
 
     // ---- sky addressing of the normalized final direction
-    V3 d = normalize3(v);
-    float phi = atan2_poly(d.z, d.x);
-    float theta = arcsin_poly(d.y);
-    float ty = 0.5f - theta / 0x1.921fb6p+1f;  // PI = 3.1415926535
-    const float offs[3] = {s[15], 0.0f, -s[15]};
-    for (int ch = 0; ch < 3; ++ch) {
-        float tx = 0.5f + (phi + offs[ch]) / 0x1.921fb6p+2f;  // 2 * PI
-        int idx;
-        float fx, fy;
-        sky_coords_from_uv(sky_h, sky_w, tx, ty, idx, fx, fy);
-        idx_out[(size_t)ch * n + pix] = idx;
-        fx_out[(size_t)ch * n + pix] = fx;
-        fy_out[(size_t)ch * n + pix] = fy;
-    }
+    write_sky_coords(v, cam.s[15], sky_h, sky_w, (size_t)n, (size_t)pix, idx_out, fx_out, fy_out);
 }
 
 extern "C" int rrt_scene_consts_size() { return (int)sizeof(SceneConsts); }
 
-extern "C" int rrt_record(const SceneConsts* c, const CamScalars* cam, int width, int height,
-                          int max_steps, int slots, int sky_h, int sky_w, float* hit, int* idx,
-                          float* fx, float* fy, float* rec, float* total, void* stream) {
+extern "C" int rrt_ray_grid_size() { return (int)sizeof(RayGrid); }
+
+extern "C" int rrt_record(const SceneConsts* c, const CamScalars* cam, const RayGrid* g,
+                          int width, int height, int max_steps, int slots, int sky_h, int sky_w,
+                          float* hit, int* idx, float* fx, float* fy, float* rec, float* total,
+                          void* stream) {
     dim3 block(16, 16);
     dim3 grid((width + 15) / 16, (height + 15) / 16);
-    record_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*c, *cam, width, height, max_steps,
-                                                            slots, sky_h, sky_w, hit, idx, fx,
-                                                            fy, rec, total);
+    record_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*c, *cam, *g, width, height,
+                                                            max_steps, slots, sky_h, sky_w, hit,
+                                                            idx, fx, fy, rec, total);
     return (int)cudaGetLastError();
 }

@@ -1,15 +1,16 @@
 """Build, load and call the hand-written CUDA kernels (csrc/*.cu).
 
-The kernels are compiled at first use by `nvcc` into one shared library
-with a plain C interface, loaded with ctypes. Pointers and the stream are
+The kernels are compiled at first use by `nvcc`, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ctypes. Pointers and the stream are
 passed as `c_void_p`; every C entry returns `cudaGetLastError()` and the
 wrappers raise when it is not 0. The build goes to `_build/` inside this
 package (listed in .gitignore), keyed by a hash of the sources and flags,
 and is compiled for `sm_90a` (Hopper).
 
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA, so the
-record and replay kernels march bitwise the same trajectory and match the
-plain PyTorch versions; `--use_fast_math` is never used. `fmad=True`
+record, replay and fused march kernels march bitwise the same trajectory
+and match the plain PyTorch versions; `--use_fast_math` is never used. `fmad=True`
 builds the contracted variant for the A/B that measures what contraction
 does to frames.
 
@@ -49,10 +50,10 @@ from relativisticraytracer_tpu_torch.media.densities import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("record.cu", "replay.cu", "sky.cu")
+SOURCES = ("record.cu", "replay.cu", "sky.cu", "march.cu")
 HEADERS = ("march_common.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The fp64 instructions of the math library's sinf/cosf slow path (see the
 # module docstring); every other fp64 instruction fails the build.
 _TRIG_SLOW_PATH_F64 = re.compile(
@@ -99,9 +100,19 @@ class SceneConsts(ctypes.Structure):
 
 
 class CamScalars(ctypes.Structure):
-    """Mirror of `struct CamScalars` in csrc/record.cu."""
+    """Mirror of `struct CamScalars` in csrc/march_common.cuh."""
 
     _fields_ = [("s", ctypes.c_float * 16)]
+
+
+class RayGrid(ctypes.Structure):
+    """Mirror of `struct RayGrid` in csrc/march_common.cuh: where a
+    launch's pixels sit in the full image (shard origin, strip maps)."""
+
+    _fields_ = [("x0", ctypes.c_float), ("y0", ctypes.c_float),
+                ("img_w", ctypes.c_int), ("img_h", ctypes.c_int),
+                ("sh", ctypes.c_int), ("ystride", ctypes.c_int),
+                ("sw", ctypes.c_int), ("xstride", ctypes.c_int)]
 
 
 def scene_consts(scene: SceneConfig) -> SceneConsts:
@@ -154,6 +165,20 @@ def cam_scalars(scal: np.ndarray) -> CamScalars:
     return out
 
 
+def ray_grid(width: int, height: int, origin=None, img_w: Optional[int] = None,
+             img_h: Optional[int] = None, strips=None, cstrips=None) -> RayGrid:
+    """The RayGrid of a (height, width) launch: the whole image by default;
+    a shard passes its global `origin=(x0, y0)` inside an (img_h, img_w)
+    frame and optional `strips=(sh, ystride)` / `cstrips=(sw, xstride)`
+    (ops/pallas_march._gen_tile_rays)."""
+    x0, y0 = (0.0, 0.0) if origin is None else origin
+    sh, ystride = strips or (0, 0)
+    sw, xstride = cstrips or (0, 0)
+    return RayGrid(float(np.float32(x0)), float(np.float32(y0)),
+                   width if img_w is None else img_w, height if img_h is None else img_h,
+                   sh, ystride, sw, xstride)
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = Path(cuda_home) / "bin" / "nvcc"
@@ -169,7 +194,7 @@ def _flags(fmad: bool):
     return ARCH_FLAGS + BASE_FLAGS + [f"-fmad={'true' if fmad else 'false'}"]
 
 
-KERNELS = ("record", "replay", "sky")
+KERNELS = ("record", "replay", "sky", "march_sky", "march_camera", "march_planes")
 
 
 class KernelLibrary:
@@ -186,11 +211,12 @@ class KernelLibrary:
         path = self._build()
         self._lib = ctypes.CDLL(str(path))
         self._declare()
-        size = self._lib.rrt_scene_consts_size()
-        if size != ctypes.sizeof(SceneConsts):
-            raise RuntimeError(
-                f"SceneConsts layout mismatch: C {size} B, ctypes "
-                f"{ctypes.sizeof(SceneConsts)} B")
+        for name, struct in (("scene_consts", SceneConsts), ("ray_grid", RayGrid)):
+            size = getattr(self._lib, f"rrt_{name}_size")()
+            if size != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{struct.__name__} layout mismatch: C {size} B, ctypes "
+                    f"{ctypes.sizeof(struct)} B")
 
     def _build(self) -> Path:
         flags = _flags(self.fmad)
@@ -203,16 +229,35 @@ class KernelLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            so = Path(tmp) / out.name
-            cmd = ([_nvcc()] + flags + ["-keep", "-keep-dir", tmp, "-o", str(so)]
-                   + [str(CSRC / s) for s in SOURCES])
+            tmp = Path(tmp)
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            # one nvcc per source, all at once; then one link
+            procs = []
+            for src in SOURCES:
+                keep = tmp / Path(src).stem
+                keep.mkdir()
+                cmd = ([_nvcc()] + flags + ["-c", "-keep", "-keep-dir", str(keep),
+                                            "-o", str(keep / "obj.o"), str(CSRC / src)])
+                procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+            logs, failed = [], []
+            for src, proc in procs:
+                logs.append(f"== {src}\n{proc.communicate()[0]}")
+                if proc.returncode != 0:
+                    failed.append(src)
+            self.build_log = "".join(logs)
+            so = tmp / out.name
+            if not failed:
+                link = subprocess.run([_nvcc()] + ARCH_FLAGS + ["-shared", "-o", str(so)]
+                                      + [str(tmp / Path(src).stem / "obj.o") for src in SOURCES],
+                                      capture_output=True, text=True)
+                self.build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed.append("link")
             self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            bad = [line for ptx in Path(tmp).glob("*.ptx")
+            if failed:
+                raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{self.build_log}")
+            bad = [line for ptx in tmp.glob("*/*.ptx")
                    for line in fp64_instructions(ptx.read_text())]
             if bad:
                 raise RuntimeError("kernel build computes in fp64:\n" + "\n".join(bad))
@@ -222,16 +267,21 @@ class KernelLibrary:
     def _declare(self):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib = self._lib
-        lib.rrt_scene_consts_size.argtypes = []
-        lib.rrt_scene_consts_size.restype = ci
-        lib.rrt_record.argtypes = [ctypes.POINTER(SceneConsts), ctypes.POINTER(CamScalars),
-                                   ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
-        lib.rrt_record.restype = ci
-        lib.rrt_replay.argtypes = [ctypes.POINTER(SceneConsts), cf, ci, ci, ci,
-                                   vp, vp, vp, vp, vp]
-        lib.rrt_replay.restype = ci
-        lib.rrt_sky.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        lib.rrt_sky.restype = ci
+        sc, cam = ctypes.POINTER(SceneConsts), ctypes.POINTER(CamScalars)
+        argtypes = {
+            "scene_consts_size": [],
+            "ray_grid_size": [],
+            "record": [sc, cam, ctypes.POINTER(RayGrid)] + [ci] * 6 + [vp] * 7,
+            "replay": [sc, cf, ci, ci, ci] + [vp] * 5,
+            "sky": [ci, ci] + [vp] * 10,
+            "march_sky": [sc, cam] + [ci] * 5 + [vp] * 6,
+            "march_camera": [sc, cam] + [ci] * 3 + [vp] * 5,
+            "march_planes": [sc, cf] + [ci] * 3 + [vp] * 6,
+        }
+        for name, types in argtypes.items():
+            fn = getattr(lib, f"rrt_{name}")
+            fn.argtypes = types
+            fn.restype = ci
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(KERNELS, 0)
@@ -241,7 +291,7 @@ class KernelLibrary:
             raise RuntimeError(f"CUDA error {err} launching the {name} kernel")
         self.launches[name] += 1
 
-    def record(self, consts, cam, width, height, max_steps, slots, sky_h, sky_w,
+    def record(self, consts, cam, grid, width, height, max_steps, slots, sky_h, sky_w,
                hit, idx, fx, fy, rec, total, stream) -> None:
         shape = (height, width)
         check("record", [(hit, torch.float32, shape),
@@ -252,9 +302,9 @@ class KernelLibrary:
                          (total, torch.float32, shape)])
         with torch.cuda.device(hit.device):
             err = self._lib.rrt_record(
-                ctypes.byref(consts), ctypes.byref(cam), width, height, max_steps,
-                slots, sky_h, sky_w, hit.data_ptr(), idx.data_ptr(), fx.data_ptr(),
-                fy.data_ptr(), rec.data_ptr(), total.data_ptr(), stream)
+                ctypes.byref(consts), ctypes.byref(cam), ctypes.byref(grid), width, height,
+                max_steps, slots, sky_h, sky_w, hit.data_ptr(), idx.data_ptr(),
+                fx.data_ptr(), fy.data_ptr(), rec.data_ptr(), total.data_ptr(), stream)
         self._launched("record", err)
 
     def replay(self, consts, time, n, m, slots, rec, order, intensity, trans,
@@ -292,6 +342,54 @@ class KernelLibrary:
                 masked.data_ptr(), qr.data_ptr(), qg.data_ptr(), qb.data_ptr(),
                 q4.data_ptr() if use_q4 else None, bg.data_ptr(), stream)
         self._launched("sky", err)
+
+    def march_sky(self, consts, cam, max_steps, sky_h, sky_w, intensity, trans,
+                  idx, fx, fy, stream) -> None:
+        shape = tuple(trans.shape)
+        check("march_sky", [(intensity, torch.float32, (3,) + shape),
+                            (trans, torch.float32, shape),
+                            (idx, torch.int32, (3,) + shape),
+                            (fx, torch.float32, (3,) + shape),
+                            (fy, torch.float32, (3,) + shape)])
+        height, width = shape
+        with torch.cuda.device(trans.device):
+            err = self._lib.rrt_march_sky(
+                ctypes.byref(consts), ctypes.byref(cam), width, height, max_steps,
+                sky_h, sky_w, intensity.data_ptr(), trans.data_ptr(), idx.data_ptr(),
+                fx.data_ptr(), fy.data_ptr(), stream)
+        self._launched("march_sky", err)
+
+    def march_camera(self, consts, cam, max_steps, intensity, trans, hit, vel,
+                     stream) -> None:
+        shape = tuple(trans.shape)
+        check("march_camera", _state_specs(shape, intensity, trans, hit, vel))
+        height, width = shape
+        with torch.cuda.device(trans.device):
+            err = self._lib.rrt_march_camera(
+                ctypes.byref(consts), ctypes.byref(cam), width, height, max_steps,
+                intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(), vel.data_ptr(),
+                stream)
+        self._launched("march_camera", err)
+
+    def march_planes(self, consts, time, max_steps, rays, intensity, trans, hit, vel,
+                     stream) -> None:
+        shape = tuple(trans.shape)
+        check("march_planes", [(rays, torch.float32, (6,) + shape)]
+              + _state_specs(shape, intensity, trans, hit, vel))
+        height, width = shape
+        with torch.cuda.device(trans.device):
+            err = self._lib.rrt_march_planes(
+                ctypes.byref(consts), time, width, height, max_steps, rays.data_ptr(),
+                intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(), vel.data_ptr(),
+                stream)
+        self._launched("march_planes", err)
+
+
+def _state_specs(shape, intensity, trans, hit, vel):
+    """Check specs of the march state planes: I and v [3, H, W], T and hit
+    [H, W], all float32."""
+    return [(intensity, torch.float32, (3,) + shape), (trans, torch.float32, shape),
+            (hit, torch.float32, shape), (vel, torch.float32, (3,) + shape)]
 
 
 _LIBRARIES: Dict[bool, KernelLibrary] = {}

@@ -43,6 +43,7 @@ from relativisticraytracer_tpu_torch.ops.camera_rays import (
     pack_camera_scalars,
     rays_from_scalars,
 )
+from relativisticraytracer_tpu_torch.ops.pallas_march import _time_tensor, render_frame_pallas
 from relativisticraytracer_tpu_torch.ops.pallas_sky import sky_background_windowed
 from relativisticraytracer_tpu_torch.render.march import (
     CHUNK,
@@ -76,12 +77,6 @@ class Record(NamedTuple):
     total: torch.Tensor  # f32 [H, W] total recorded length (replay steps)
 
 
-def _time_tensor(time, device) -> torch.Tensor:
-    """The sim clock as a float32 scalar tensor: products such as
-    `time * 0.35` are then float32 products, as in the JAX package."""
-    return torch.as_tensor(time, dtype=torch.float32, device=device).reshape(())
-
-
 # --------------------------------------------------------------------------
 # A: the record pass
 # --------------------------------------------------------------------------
@@ -89,12 +84,13 @@ def _time_tensor(time, device) -> torch.Tensor:
 
 def _record_plain(scene: SceneConfig, scal, width: int, height: int,
                   max_steps: int, slots: int, sky_h: int, sky_w: int,
-                  device) -> Record:
+                  device, **place) -> Record:
     """Plain PyTorch record pass: the masked march of render/march.py with
     the shading block swapped for a per-step segment recorder. Finished
     rays leave the working set every CHUNK steps (exact: rays are
-    independent)."""
-    origin, rd = rays_from_scalars(scal, width, height, device)
+    independent). `place` holds a shard's origin, img_w/img_h, strips and
+    cstrips (ops/camera_rays.rays_from_scalars)."""
+    origin, rd = rays_from_scalars(scal, width, height, device, **place)
     n = width * height
     p = origin.map(lambda a: a.reshape(-1).clone())
     v = rd.map(lambda a: a.reshape(-1).clone())
@@ -180,7 +176,7 @@ def _record_plain(scene: SceneConfig, scal, width: int, height: int,
 
 def _record_cuda(scene: SceneConfig, scal, width: int, height: int,
                  max_steps: int, slots: int, sky_h: int, sky_w: int,
-                 device, lib) -> Record:
+                 device, lib, **place) -> Record:
     lib = cuda_lib.resolve(lib)
     shape = (height, width)
     f32 = dict(dtype=torch.float32, device=device)
@@ -193,6 +189,7 @@ def _record_cuda(scene: SceneConfig, scal, width: int, height: int,
         total=torch.empty(shape, **f32),
     )
     lib.record(cuda_lib.scene_consts(scene), cuda_lib.cam_scalars(scal),
+               cuda_lib.ray_grid(width, height, **place),
                width, height, max_steps, slots, sky_h, sky_w,
                out.hit, out.idx, out.fx, out.fy, out.rec, out.total,
                cuda_lib.current_stream(device))
@@ -211,21 +208,35 @@ def march_pallas_camera_sky_record(
     sky_w: int,
     slots: int = SLOTS,
     *,
-    device,
+    device="cuda",
     lib=None,
+    origin=None,
+    img_w: Optional[int] = None,
+    img_h: Optional[int] = None,
+    strips: Optional[Tuple[int, int]] = None,
+    cstrips: Optional[Tuple[int, int]] = None,
 ) -> Record:
     """The A pass on `device`: csrc/record.cu for a CUDA device, the plain
     PyTorch version on the CPU. `lib` picks a kernel build
-    (ops/cuda_lib.kernels); None is the default build."""
+    (ops/cuda_lib.kernels); None is the default build.
+
+    A shard of a spatially tiled frame (parallel/sharding.py) marches the
+    (height, width) rectangle whose top-left global pixel is
+    `origin=(x0, y0)` of an (img_h, img_w) frame, its rows and columns
+    optionally strip-interleaved by `strips=(sh, ystride)` and
+    `cstrips=(sw, xstride)`; its rays are bitwise the full frame's."""
     device = torch.device(device)
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
+    if (origin is None) != (img_w is None or img_h is None):
+        raise ValueError("origin and img_w/img_h must be given together")
     scal = pack_camera_scalars(camera, effects, time)
     args = (scene, scal, width, height, max_steps, slots, sky_h, sky_w, device)
+    place = dict(origin=origin, img_w=img_w, img_h=img_h, strips=strips, cstrips=cstrips)
     if device.type == "cuda":
-        return _record_cuda(*args, lib)
+        return _record_cuda(*args, lib, **place)
     if device.type == "cpu":
-        return _record_plain(*args)
+        return _record_plain(*args, **place)
     raise ValueError(f"unsupported device {device}")
 
 
@@ -373,40 +384,49 @@ def _compact_tile_rgba(
     camera,
     effects: CameraEffects,
     time,
-    sky: Optional[Skybox],
+    sky: Skybox,
     w: int,
     h: int,
     device,
     lib=None,
+    origin=None,
+    img_w: Optional[int] = None,
+    img_h: Optional[int] = None,
+    strips: Optional[Tuple[int, int]] = None,
+    cstrips: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """uint8 RGBA [h, w, 4] of the (supersampled) frame before the SSAA
-    resolve: record, replay, sky, composite and epilogue."""
+    """uint8 RGBA [h, w, 4] of the (supersampled) rectangle before the SSAA
+    resolve: record, replay, sky, composite and epilogue.
+
+    Single device: origin=None and (w, h) is the frame. A shard
+    (parallel/sharding.py): `origin=(x0, y0)` is the global pixel of its
+    rectangle in the (img_h, img_w) supersampled frame, and `strips` /
+    `cstrips` its strip maps; ray gen, sky addressing and the vignette uv
+    all use global coordinates, so the tile is bitwise the matching crop
+    of the single-device frame, rows and columns in local order."""
     ss = settings.supersample
-    sky_h, sky_w = sky.shape if sky is not None else (1, 1)
+    place = dict(origin=origin, img_w=img_w, img_h=img_h, strips=strips, cstrips=cstrips)
     record = march_pallas_camera_sky_record(
         scene, camera, effects, time, w, h, settings.resolved_max_steps(scene),
-        sky_h, sky_w, slots=settings.media_slots, device=device, lib=lib,
+        *sky.shape, slots=settings.media_slots, device=device, lib=lib, **place,
     )
     if settings.media_sort:
         intensity, trans = media_replay_sorted(scene, record, time, lib=lib)
     else:
         intensity, trans = media_replay(scene, record.rec, time, lib=lib)
 
-    if sky is None:
-        hdr = intensity  # black background: bg = 0
-    else:
-        # Captured rays: transmittance 0 (raymarcher.cu:49) — the replay
-        # cannot know about captures, so the mask applies here.
-        captured = record.hit > 0.5
-        trans = torch.where(captured, 0.0, trans)
-        bg = sky_background_windowed(sky, record.idx, record.fx, record.fy,
-                                     effects, masked=captured, lib=lib)
-        hdr = Vec3(
-            intensity.x + bg.x * trans,
-            intensity.y + bg.y * trans,
-            intensity.z + bg.z * trans,
-        )
-    uv_x, uv_y = uv_planes(w, h, effects, device)
+    # Captured rays: transmittance 0 (raymarcher.cu:49) — the replay
+    # cannot know about captures, so the mask applies here.
+    captured = record.hit > 0.5
+    trans = torch.where(captured, 0.0, trans)
+    bg = sky_background_windowed(sky, record.idx, record.fx, record.fy,
+                                 effects, masked=captured, lib=lib)
+    hdr = Vec3(
+        intensity.x + bg.x * trans,
+        intensity.y + bg.y * trans,
+        intensity.z + bg.z * trans,
+    )
+    uv_x, uv_y = uv_planes(w, h, effects, device, **place)
     ldr = apply_effects_and_tonemap(hdr, uv_x, uv_y, effects, scene.exposure)
     return pack_rgba8(downsample_box(ldr, ss))
 
@@ -419,19 +439,17 @@ def render_frame_pallas_compact(
     time,
     sky: Optional[Skybox],
     *,
-    device,
+    device="cuda",
     lib=None,
 ) -> torch.Tensor:
     """The default frame program on `device`: uint8 [H, W, 4].
 
-    Where the JAX package falls back to the inline kernel (no sky, or no
-    medium enabled, pallas_compact.py:872-874) the port keeps the record
-    path, which is exact: with no medium nothing is recorded and the
-    replay gives I = 0, T = 1; with no sky bg = 0 and hdr = I."""
-    if settings.media_pass != "compact":
-        raise NotImplementedError(
-            f"media_pass={settings.media_pass!r}: the inline march kernel is "
-            f"not ported yet")
+    Record + replay needs a sky and a medium; without either the frame
+    goes to the fused inline march, as in the JAX package
+    (pallas_compact.py:872-874)."""
+    if sky is None or not (scene.enable_disk or scene.enable_clouds):
+        return render_frame_pallas(scene, settings, camera, effects, time, sky,
+                                   device=device, lib=lib)
     ss = settings.supersample
     return _compact_tile_rgba(scene, settings, camera, effects, time, sky,
                               settings.width * ss, settings.height * ss,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,18 +79,63 @@ def default_camera() -> CameraState:
     return camera_state_from_pose((0.0, 10.0, -60.0), 0.0, -10.0)
 
 
-def uv_planes(width: int, height: int, effects: CameraEffects,
-              device) -> Tuple[torch.Tensor, torch.Tensor]:
+def uv_planes(width: int, height: int, effects: CameraEffects, device,
+              origin=None, img_w: Optional[int] = None, img_h: Optional[int] = None,
+              strips: Optional[Tuple[int, int]] = None,
+              cstrips: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (possibly distorted) screen uv planes, float32[height, width]
     (raymarcher.cu:20-25); the vignette reuses them (raymarcher.cu:160).
-    The JAX package's `ops/pallas_march._uv_planes` (:625-658)."""
-    xs = torch.arange(width, dtype=torch.float32, device=device)
-    ys = torch.arange(height, dtype=torch.float32, device=device)
-    uv_x = fdiv(xs, float(width))[None, :].expand(height, width)
-    uv_y = fdiv(ys, float(height))[:, None].expand(height, width)
+    The JAX package's `ops/pallas_march._uv_planes` (:625-658).
+
+    With `origin=(x0, y0)` the planes cover the (height, width) rectangle
+    at that global pixel offset of an (img_h, img_w) frame, bitwise a
+    slice of the full frame's planes (exact integer float adds, the same
+    divisions). `strips=(sh, ystride)` maps local row r to global row
+    (r // sh) * ystride + r % sh before the offset, `cstrips=(sw, xstride)`
+    the columns likewise (strip-interleaved shards, parallel/sharding.py)."""
+    xi = torch.arange(width, device=device)
+    yi = torch.arange(height, device=device)
+    if strips is not None:
+        sh, ystride = strips
+        yi = (yi // sh) * ystride + yi % sh
+    if cstrips is not None:
+        sw, xstride = cstrips
+        xi = (xi // sw) * xstride + xi % sw
+    xs = xi.to(torch.float32)
+    ys = yi.to(torch.float32)
+    if origin is not None:
+        xs = xs + float(np.float32(origin[0]))
+        ys = ys + float(np.float32(origin[1]))
+    nw = float(width if img_w is None else img_w)
+    nh = float(height if img_h is None else img_h)
+    uv_x = fdiv(xs, nw)[None, :].expand(height, width)
+    uv_y = fdiv(ys, nh)[:, None].expand(height, width)
     if effects.use_lens_distortion > 0.5:
         uv_x, uv_y = apply_lens_distortion(uv_x, uv_y, effects.distortion_amount)
     return uv_x, uv_y
+
+
+def rays_from_uv(uv_x: torch.Tensor, uv_y: torch.Tensor, cam: CameraState,
+                 img_w: int, img_h: int) -> Tuple[Vec3, Vec3]:
+    """(origin, direction) planes for the given screen uv of an
+    (img_h, img_w) frame: NDC with aspect on u only, rd = normalize(forward
+    + u*right + v*up) (raymarcher.cu:26-34)."""
+    height, width = uv_x.shape
+    aspect = float(np.float32(img_w) / np.float32(img_h))
+    u = (uv_x * 2.0 - 1.0) * aspect
+    v = uv_y * 2.0 - 1.0
+
+    f, r, up = ([float(c) for c in vec] for vec in (cam.forward, cam.right, cam.up))
+    rd = normalize(
+        Vec3(
+            f[0] + u * r[0] + v * up[0],
+            f[1] + u * r[1] + v * up[1],
+            f[2] + u * r[2] + v * up[2],
+        )
+    )
+    origin = Vec3(*(torch.full((height, width), float(c), dtype=torch.float32,
+                               device=uv_x.device) for c in cam.pos))
+    return origin, rd
 
 
 def generate_rays(
@@ -105,18 +150,5 @@ def generate_rays(
     Returns (origins, directions, uv_x, uv_y); each component is a
     float32[height, width] plane."""
     uv_x, uv_y = uv_planes(width, height, effects, device)
-    aspect = float(np.float32(width) / np.float32(height))
-    u = (uv_x * 2.0 - 1.0) * aspect
-    v = uv_y * 2.0 - 1.0
-
-    f, r, up = ([float(c) for c in vec] for vec in (cam.forward, cam.right, cam.up))
-    rd = normalize(
-        Vec3(
-            f[0] + u * r[0] + v * up[0],
-            f[1] + u * r[1] + v * up[1],
-            f[2] + u * r[2] + v * up[2],
-        )
-    )
-    origin = Vec3(*(torch.full((height, width), float(c), dtype=torch.float32,
-                               device=device) for c in cam.pos))
+    origin, rd = rays_from_uv(uv_x, uv_y, cam, width, height)
     return origin, rd, uv_x, uv_y

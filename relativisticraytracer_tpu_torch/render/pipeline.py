@@ -2,10 +2,13 @@
 
 `render_frame` is the plain path: ray gen -> masked geodesic march ->
 radiative transfer -> skybox composite -> post FX -> tone map -> uint8
-pack, all plain PyTorch. `Renderer` drives the default frame program,
-ops/pallas_compact.render_frame_pallas_compact, on the device it is given:
-on a CUDA device that is the hand-written record, replay and sky kernels,
-on the CPU their plain PyTorch versions. Nothing probes the machine.
+pack, all plain PyTorch. `Renderer` drives the frame program its
+settings name on the device it is given (a CUDA card unless the caller
+asks for the CPU): ops/pallas_compact.render_frame_pallas_compact (record,
+replay and sky kernels; the fused inline march where there is no sky or no
+medium) for `media_pass="compact"`, ops/pallas_march.render_frame_pallas
+(the fused inline march) for `media_pass="inline"`. On the CPU each kernel
+is its plain PyTorch version. Nothing probes the machine.
 """
 
 from __future__ import annotations
@@ -21,10 +24,8 @@ from relativisticraytracer_tpu_torch.config import (
     SceneConfig,
 )
 from relativisticraytracer_tpu_torch.core.vecmath import Vec3
-from relativisticraytracer_tpu_torch.ops.pallas_compact import (
-    _time_tensor,
-    render_frame_pallas_compact,
-)
+from relativisticraytracer_tpu_torch.ops.pallas_compact import render_frame_pallas_compact
+from relativisticraytracer_tpu_torch.ops.pallas_march import _time_tensor, render_frame_pallas
 from relativisticraytracer_tpu_torch.render.camera import CameraState, generate_rays
 from relativisticraytracer_tpu_torch.render.march import render_hdr
 from relativisticraytracer_tpu_torch.render.postfx import (
@@ -47,7 +48,7 @@ def render_frame(
     time,
     sky: Optional[Skybox],
     *,
-    device,
+    device="cuda",
 ) -> torch.Tensor:
     """Render one frame on `device` with the plain march -> uint8[H, W, 4],
     top-down row order."""
@@ -70,11 +71,12 @@ def render_frame(
 
 
 class Renderer:
-    """Host-side driver of the default frame program on one device.
+    """Host-side driver of the frame program on one device.
 
     Keeps the skybox resident on that device (the one-time upload, analog
-    of main.cpp:247-248). `device` decides the path: "cuda[:N]" launches
-    the kernels, "cpu" runs their plain versions."""
+    of main.cpp:247-248). `device` decides the path: "cuda[:N]" (the
+    default) launches the kernels, "cpu" runs their plain versions.
+    `render_on` renders on another device with a per-device sky replica."""
 
     def __init__(
         self,
@@ -83,11 +85,14 @@ class Renderer:
         skybox_rgba: Optional[np.ndarray] = None,
         skybox: Optional[Skybox] = None,
         *,
-        device,
+        device="cuda",
     ):
         self.scene = scene
         self.settings = settings
         self.device = torch.device(device)
+        self._fn = (render_frame_pallas_compact if settings.media_pass == "compact"
+                    else render_frame_pallas)
+        self._sky_cache: dict = {}
         # `skybox` shares an already-built texture; `skybox_rgba` uploads a
         # host array.
         self.sky: Optional[Skybox] = None if skybox is None else skybox.to(self.device)
@@ -101,12 +106,29 @@ class Renderer:
         time: float = 0.0,
     ) -> torch.Tensor:
         """Returns the uint8[H, W, 4] frame on the renderer's device."""
-        if effects is None:
-            effects = CameraEffects()
-        return render_frame_pallas_compact(
-            self.scene, self.settings, camera, effects, time, self.sky,
-            device=self.device)
+        return self.render_on(None, camera, effects, time)
 
     def render_np(self, camera, effects=None, time: float = 0.0) -> np.ndarray:
         """Render and fetch to host (the analog of the PBO readback)."""
         return self.render(camera, effects, time).cpu().numpy()
+
+    def _sky_on(self, device: torch.device) -> Optional[Skybox]:
+        """Per-device replica of the skybox (one upload per device)."""
+        if self.sky is None or device == self.device:
+            return self.sky
+        if device not in self._sky_cache:
+            self._sky_cache[device] = self.sky.to(device)
+        return self._sky_cache[device]
+
+    def render_on(self, device, camera: CameraState,
+                  effects: Optional[CameraEffects] = None,
+                  time: float = 0.0) -> torch.Tensor:
+        """One frame on `device` (None: the renderer's own), returned on
+        that device without waiting for it. Frames are independent, so an
+        animation can deal them round-robin to several cards with no
+        communication (reference recording loop: main.cpp:505-529)."""
+        if effects is None:
+            effects = CameraEffects()
+        device = self.device if device is None else torch.device(device)
+        return self._fn(self.scene, self.settings, camera, effects, time,
+                        self._sky_on(device), device=device)

@@ -147,7 +147,7 @@ def sample_sky_fast(tex: Skybox, d: Vec3, effects) -> Vec3:
 
 
 def procedural_starfield(height: int = 1024, width: int = 2048, seed: float = 7.0,
-                         device="cpu") -> np.ndarray:
+                         device="cuda") -> np.ndarray:
     """Deterministic procedural equirect starfield + nebula, built from the
     framework's own hash/fbm stack. Returns uint8 [height, width, 4].
     sin/cos differ from XLA's by an ulp here and there, so threshold

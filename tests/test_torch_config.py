@@ -84,13 +84,20 @@ def test_octave_cap_error_and_max_steps_match_jax():
 
 
 def test_inline_media_pass_is_not_ported_yet():
+    """media_pass="inline" is ported now: the renderer takes the fused
+    inline march (ops/pallas_march.render_frame_pallas) and renders where it
+    raised NotImplementedError before; an unknown pass is still refused."""
+    from relativisticraytracer_tpu_torch.ops import pallas_march
     from relativisticraytracer_tpu_torch.render.pipeline import Renderer
 
     r = Renderer(tcfg.SceneConfig(max_steps=4),
                  tcfg.RenderSettings(width=8, height=4, media_pass="inline"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="inline"):
-        r.render(tcam.default_camera())
+    assert r._fn is pallas_march.render_frame_pallas
+    frame = r.render(tcam.default_camera())
+    assert frame.shape == (4, 8, 4) and frame.dtype == torch.uint8
+    with pytest.raises(ValueError, match="media_pass"):
+        tcfg.RenderSettings(media_pass="fused")
 
 
 def test_port_imports_no_jax():
@@ -157,7 +164,7 @@ def test_committed_starfield_is_the_jax_starfield():
     got = np.load(STARFIELD)
     assert got.dtype == np.uint8 and got.shape == (64, 128, 4)
     np.testing.assert_array_equal(got, want)
-    own = tsky.procedural_starfield(64, 128)
+    own = tsky.procedural_starfield(64, 128, device="cpu")
     flipped = int(np.any(own != want, axis=-1).sum())
     print(f"port starfield: {flipped} of {64 * 128} pixels differ from JAX's")
     assert flipped <= 0.01 * 64 * 128

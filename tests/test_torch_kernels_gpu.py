@@ -7,11 +7,12 @@ tests/conftest.py:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py
 
-Tolerances: the record kernel's hit mask agrees with the plain version's
-on all but < 1e-3 of the pixels and its quad indices where hits agree;
-the replay's (I, T) to rtol 2e-6 / atol 5e-7 (tests/test_compact.py:180);
-the sky bitwise on unmasked pixels. Built with -fmad=false, the kernels
-have matched their plain versions bitwise on an H100."""
+Tolerances: the record and fused march kernels' hit masks agree with the
+plain versions' on all but < 1e-3 of the pixels, and their quad indices
+where hits agree; (I, T) and v to rtol 2e-6 / atol 5e-7
+(tests/test_compact.py:180); the sky bitwise on unmasked pixels; frames
+(inline vs compact, sharded vs whole) bitwise. Built with -fmad=false,
+the kernels have matched their plain versions bitwise on an H100."""
 
 import pathlib
 
@@ -29,7 +30,10 @@ from relativisticraytracer_tpu_torch.core.vecmath import Vec3
 from relativisticraytracer_tpu_torch.media.densities import cloud_probe_bounds, disk_probe_bounds
 from relativisticraytracer_tpu_torch.ops import cuda_lib
 from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
+from relativisticraytracer_tpu_torch.ops import pallas_march as pm
 from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
+from relativisticraytracer_tpu_torch.ops.camera_rays import rays_from_scalars
+from relativisticraytracer_tpu_torch.parallel.sharding import make_mesh, make_sharded_renderer
 from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
 from relativisticraytracer_tpu_torch.render.pipeline import Renderer
 from relativisticraytracer_tpu_torch.render.skybox import sky_coords, skybox_from_array
@@ -133,7 +137,92 @@ def test_renderer_on_the_card_passes_goldens(cuda, name, kw, fx_on):
     want = np.load(ROOT / "goldens" / f"{name}.npy")
     d = got[..., :3].astype(int) - want[..., :3].astype(int)
     assert np.sqrt(np.mean((d / 255.0) ** 2)) < 1e-3
-    assert lib.launches == {"record": 1, "replay": 1, "sky": 1}
+    # no medium: the fused inline march (kernel 4), as in the JAX package
+    ran = {"march_sky"} if not kw.get("enable_disk", True) else {"record", "replay", "sky"}
+    assert lib.launches == {k: int(k in ran) for k in cuda_lib.KERNELS}
+
+
+def _march_both(dev, kernel, w=96, h=54, steps=2000, t=10.0):
+    """(kernel, plain) outputs of one fused march kernel at the headline
+    pose; the plane kernel marches the camera's rays from memory."""
+    scene = SceneConfig(max_steps=steps)
+    scal = pc.pack_camera_scalars(camera_state_from_pose(*HEAD), CameraEffects(), t)
+    if kernel == "sky":
+        args = (scene, scal, w, h, steps, 64, 128, dev)
+        return pm._march_camera_sky_cuda(*args), pm._march_camera_sky_plain(*args)
+    if kernel == "camera":
+        args = (scene, scal, w, h, steps, dev)
+        return pm._march_camera_cuda(*args), pm._march_camera_plain(*args)
+    o, d = rays_from_scalars(scal, w, h, dev)
+    return (pm._march_planes_cuda(scene, o, d, t, steps),
+            pm._march_plain(scene, o, d, t, steps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sky", "camera", "planes"])
+def test_march_kernels_match_plain(cuda, kernel):
+    """Kernels 4-6 against the plain march on the card: hit masks agree but
+    for < 1e-3 of the pixels, (I, T) (and v, or the sky indices) where
+    they agree to rtol 2e-6 / atol 5e-7; expected bitwise."""
+    k, p = _march_both(cuda, kernel)
+    if kernel == "sky":  # no hit plane: captured rays have T exactly 0
+        same = (k[1] == 0) == (p[1] == 0)
+        assert (~same).float().mean().item() < 1e-3
+        assert torch.equal(k[2][:, same], p[2][:, same])
+        rest = [(k[3], p[3]), (k[4], p[4])]
+    else:
+        assert (k[2] != p[2]).float().mean().item() < 1e-3
+        same = k[2] == p[2]
+        rest = [(torch.stack(list(k[3])), torch.stack(list(p[3])))]
+    pairs = [(torch.stack(list(k[0])), torch.stack(list(p[0]))), (k[1][None], p[1][None])]
+    for got, want in pairs + rest:
+        torch.testing.assert_close(got[:, same], want[:, same], rtol=2e-6, atol=5e-7)
+    assert (k[1] < 1.0).any() and (k[1] == 0.0).any()  # media and captures
+
+
+@pytest.mark.gpu
+def test_record_kernel_shard_is_a_crop(cuda):
+    """The record kernel with a shard origin and strip maps is bitwise the
+    matching rows/columns of the full-frame record."""
+    scene = SceneConfig(max_steps=400)
+    cam = camera_state_from_pose(*HEAD)
+    full = pc.march_pallas_camera_sky_record(scene, cam, CameraEffects(), 2.0, 96, 64, 400,
+                                             64, 128, device=cuda)
+    rows = [(r // 8) * 16 + r % 8 + 8 for r in range(32)]
+    cols = [(c // 16) * 48 + c % 16 + 16 for c in range(32)]
+    shard = pc.march_pallas_camera_sky_record(
+        scene, cam, CameraEffects(), 2.0, 32, 32, 400, 64, 128, device=cuda,
+        origin=(16.0, 8.0), img_w=96, img_h=64, strips=(8, 16), cstrips=(16, 48))
+    for got, want in zip(shard, full):
+        assert torch.equal(got, want[..., rows, :][..., cols])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [3, 1])
+def test_inline_frame_equals_compact_frame_on_the_card(cuda, slots):
+    scene = SceneConfig(max_steps=2000)
+    sky = skybox_from_array(SKY, cuda)
+    cam = camera_state_from_pose(*HEAD)
+    frames = [Renderer(scene, RenderSettings(width=192, height=108, media_pass=mp,
+                                             media_slots=slots),
+                       skybox=sky, device=cuda).render(cam, CameraEffects(), 10.0)
+              for mp in ("compact", "inline")]
+    assert torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("media_pass", ["compact", "inline"])
+def test_sharded_frame_on_one_card(cuda, media_pass):
+    """A 4x2 grid of one card, shards one after another: tiled == untiled."""
+    scene = SceneConfig(max_steps=2000)
+    settings = RenderSettings(width=192, height=112, media_pass=media_pass)
+    sky = skybox_from_array(SKY, cuda)
+    cam = camera_state_from_pose(*HEAD)
+    fn = make_sharded_renderer(scene, settings, make_mesh([cuda] * 8, (4, 2)))
+    tiled = fn.reassemble(fn(cam, CameraEffects(), 10.0, sky))
+    whole = Renderer(scene, settings, skybox=sky, device=cuda).render_np(
+        cam, CameraEffects(), 10.0)
+    np.testing.assert_array_equal(tiled, whole)
 
 
 def test_scene_consts_fold_like_the_jax_package():

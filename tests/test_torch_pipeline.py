@@ -100,9 +100,9 @@ def test_supersample_matches_jax_render_frame():
     (dict(), False),                                        # no sky
 ])
 def test_record_path_without_medium_or_sky_matches_jax(scene_kw, sky):
-    """Where the JAX package falls back to its inline kernel (no sky, or
-    no medium) the port keeps the record path: nothing recorded gives
-    I = 0, T = 1, and no sky gives bg = 0."""
+    """With no sky or no medium the default program falls back to the
+    fused inline march, in the port as in the JAX package
+    (pallas_compact.py:872-874); the frame matches JAX's."""
     settings = dict(width=48, height=32, max_steps=160)
     pose = ((0.0, 3.0, -30.0), 0.0, -6.0)
     want = _jax_frame(dict(max_steps=160, **scene_kw), settings, pose, JEffects(), 0.5,
