@@ -10,8 +10,9 @@ script exits non-zero without the final result line:
   2. build: nvcc builds csrc/*.cu (record, replay, sky, march), one process
      per source started together, for sm_90a;
   3. kernels vs plain PyTorch on the card: record at 192x108 with 2000
-     steps (hit mismatch < 1e-3, sky index equal where hit agrees), replay
-     on that record (rtol 2e-6 / atol 5e-7), sky on random and smooth
+     steps (hit mismatch < 1e-3, sky index equal where hit agrees), replay's
+     three passes on that record (rtol 2e-6 / atol 5e-7; bitwise
+     expected), sky on random and smooth
      directions with chromatic aberration on and off (bitwise where
      unmasked), and the three fused march kernels (march_sky, march_camera,
      march_planes) at 192x108 with 2000 steps (hit mismatch < 1e-3, (I, T)
@@ -25,21 +26,26 @@ script exits non-zero without the final result line:
      2048x4096 starfield): latency and pipelined throughput, per-kernel
      times beside the plain versions', the frame against the plain path on
      the card (RMSE < 1e-3), launches of each kernel on the main path,
-     replayed rays and peak memory; then the same frame with
+     replayed rays and peak memory, each replay pass's time (march, shade
+     disk, shade cloud, composite) and its step list's size; then the same frame with
      media_pass="inline" (march_sky: latency, throughput, RMSE against the
      compact frame), the no-sky frame (march_camera), march_planes on the
      headline rays, one plain march at 1080p (the plain time of the three
-     march kernels, with its ray-step counts, which size the bounds);
+     march kernels, with its ray-step counts, which size the bounds, and
+     per-ray step counts, which give the SIMT efficiency of 16x2 and 8x4
+     warp footprints and of ideal lane refill);
   6. the -fmad=false vs contracted-FMA build A/B on the headline frame
      (informational; a build or launch failure still fails the run);
   7. with --trace only: one headline frame and one inline headline frame
      under torch.profiler — device time per kernel, device busy time
-     against the frame's wall time — and their Chrome traces in
+     against the frame's wall time, host syncs (the compact frame must
+     have exactly one cudaStreamSynchronize, its `nonzero`) — and their Chrome traces in
      chiprun_out/{headline,inline}_trace.json;
   8. shards on one card: the 1080p frame on a 4x2 grid of cuda:0, shards
      run one after another — the compact branch (strip-interleaved) and
      the inline branch (march_planes) — each bitwise the single-device
-     frame after `reassemble`, with each shard's ms.
+     frame after `reassemble`, with each shard's ms (and, inline, each
+     shard's march_planes launch by CUDA events).
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
@@ -81,19 +87,20 @@ GOLDEN_CASES = [
 ]
 
 CSRC = "relativisticraytracer_tpu_torch/csrc/"
-# name: (source, the TPU kernel it replaces, its __global__ symbol)
+# name: (source, the TPU kernel it replaces, its __global__ symbols)
 KERNELS = {
     "record": (CSRC + "record.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:332",
-               "record_kernel"),
+               ("record_kernel",)),
     "replay": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
-               "replay_kernel"),
-    "sky": (CSRC + "sky.cu", "relativisticraytracer_tpu/ops/pallas_sky.py:189", "sky_kernel"),
+               ("replay_march_kernel", "shade_disk_kernel", "shade_cloud_kernel",
+                "replay_composite_kernel")),
+    "sky": (CSRC + "sky.cu", "relativisticraytracer_tpu/ops/pallas_sky.py:189", ("sky_kernel",)),
     "march_sky": (CSRC + "march.cu", "relativisticraytracer_tpu/ops/pallas_march.py:543",
-                  "march_camera_sky_kernel"),
+                  ("march_camera_sky_kernel",)),
     "march_camera": (CSRC + "march.cu", "relativisticraytracer_tpu/ops/pallas_march.py:416",
-                     "march_camera_kernel"),
+                     ("march_camera_kernel",)),
     "march_planes": (CSRC + "march.cu", "relativisticraytracer_tpu/ops/pallas_march.py:324",
-                     "march_planes_kernel"),
+                     ("march_planes_kernel",)),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM.
@@ -145,21 +152,35 @@ def bound(ops: float, nbytes: float):
 class StepCounter:
     """Counts, on the card and without host syncs, what a plain march
     (render/march.march) does: ray-steps (rays active when a step starts),
-    and steps whose disk or cloud probe is True. It wraps render/march's
-    march_step and _media_contribution while it is entered."""
+    steps whose disk or cloud probe is True, and each ray's steps
+    (`per_ray`, in pixel order). It wraps render/march's march_step,
+    _media_contribution and _scatter (which march calls after every chunk
+    of steps with the working set's pixel ids) while it is entered."""
 
     def __init__(self, device):
         self.n = torch.zeros(3, dtype=torch.int64, device=device)
+        self.per_ray = None
+        self._chunk = None  # steps of each working-set ray since the last _scatter
 
     def __enter__(self):
         from relativisticraytracer_tpu_torch.render import march as rm
 
         self._rm = rm
-        self._orig = step, media = rm.march_step, rm._media_contribution
+        self._orig = step, media, scatter = rm.march_step, rm._media_contribution, rm._scatter
 
         def counted_step(scene, st, time, media_hook=None):
             self.n[0] += st.active.sum()
+            if self._chunk is None:
+                self._chunk = torch.zeros_like(st.active, dtype=torch.int64)
+            self._chunk += st.active
             return step(scene, st, time, media_hook)
+
+        def counted_scatter(full, ids, part):
+            if self.per_ray is None:
+                self.per_ray = torch.zeros_like(full.active, dtype=torch.int64)
+            self.per_ray.index_add_(0, ids, self._chunk)
+            self._chunk = None
+            return scatter(full, ids, part)
 
         def counted_media(*args, probe_disk=None, probe_cloud=None):
             for k, probe in ((1, probe_disk), (2, probe_cloud)):
@@ -168,19 +189,50 @@ class StepCounter:
             return media(*args, probe_disk=probe_disk, probe_cloud=probe_cloud)
 
         rm.march_step, rm._media_contribution = counted_step, counted_media
+        rm._scatter = counted_scatter
         return self
 
     def __exit__(self, *exc):
-        self._rm.march_step, self._rm._media_contribution = self._orig
+        self._rm.march_step, self._rm._media_contribution, self._rm._scatter = self._orig
 
     def counts(self):
         return [int(c) for c in self.n.tolist()]
 
 
-def trace_frame(render, label: str) -> str:
-    """One warm call of `render` under torch.profiler: a summary line of
-    device time by kernel and device busy time against wall time. The
-    Chrome trace goes to chiprun_out/<label>_trace.json."""
+def simt_efficiency(steps: np.ndarray, fw: int, fh: int) -> float:
+    """sum(steps) / sum(32 * max over the warp) for warps that cover fw x fh
+    pixel patches (fw * fh = 32; lanes past the image edge idle)."""
+    h, w = steps.shape
+    pad = np.zeros((-(-h // fh) * fh, -(-w // fw) * fw), np.int64)
+    pad[:h, :w] = steps
+    tiles = pad.reshape(pad.shape[0] // fh, fh, pad.shape[1] // fw, fw)
+    return float(steps.sum() / (32.0 * tiles.max(axis=(1, 3)).sum()))
+
+
+def refill_efficiency(steps: np.ndarray, lanes: int) -> float:
+    """SIMT efficiency of ideal lane refill: `lanes` lanes (32 to a warp)
+    take the rays in 16x2 patch order (h and w multiples of 2 and 16), each
+    the next ray the moment its own ends; a warp issues until its last lane
+    runs dry. sum(steps) / sum(32 * the warp's end)."""
+    import heapq
+
+    h, w = steps.shape
+    patch = steps.reshape(h // 2, 2, w // 16, 16).transpose(0, 2, 1, 3).reshape(-1)
+    free = [(0, lane) for lane in range(lanes)]
+    end = np.zeros(lanes, np.int64)
+    for s in patch.tolist():
+        t, lane = heapq.heappop(free)
+        end[lane] = t + s
+        heapq.heappush(free, (t + s, lane))
+    warp_end = end.reshape(-1, 32).max(axis=1)
+    return float(steps.sum() / (32.0 * warp_end.sum()))
+
+
+def trace_frame(render, label: str):
+    """One warm call of `render` under torch.profiler: (a summary line of
+    device time by kernel and device busy time against wall time, the
+    number of cudaStreamSynchronize calls), and writes its Chrome trace
+    as <label>_trace.json in the output directory below."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -194,25 +246,28 @@ def trace_frame(render, label: str) -> str:
     out = ROOT / "chiprun_out" / f"{label}_trace.json"
     out.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out))
+    syncs = sum(1 for e in prof.events() if e.name == "cudaStreamSynchronize")
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         return (f"phase 7 trace ({label}): frame wall {wall_ms:.3f} ms; the profiler recorded "
-                f"no device events (device time not measured)")
+                f"no device events (device time not measured); cudaStreamSynchronize {syncs}",
+                syncs)
     busy_us, end_us = 0.0, spans[0][0]
     by_name = {}
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end_us))  # union of the device intervals
         end_us = max(end_us, e)
         symbol = name.split("(")[0].split(" ")[-1]
-        key = next((k for k, v in KERNELS.items() if v[2] == symbol), "other: " + name[:60])
+        key = next((k for k, v in KERNELS.items() if symbol in v[2]), "other: " + name[:60])
         by_name[key] = by_name.get(key, 0.0) + (e - s) / 1000.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return (f"phase 7 trace (torch.profiler, one {label} frame): wall {wall_ms:.3f} ms, "
             f"device busy {busy_us / 1000.0:.3f} ms (idle share "
             f"{1.0 - busy_us / 1000.0 / wall_ms:.3f}), device span "
-            f"{(end_us - spans[0][0]) / 1000.0:.3f} ms, {len(spans)} device events; "
-            f"device ms by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+            f"{(end_us - spans[0][0]) / 1000.0:.3f} ms, {len(spans)} device events, "
+            f"cudaStreamSynchronize {syncs}; device ms by kernel: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in top)), syncs
 
 
 def main() -> None:
@@ -231,6 +286,7 @@ def main() -> None:
     )
     from relativisticraytracer_tpu_torch.core.vecmath import Vec3, normalize
     from relativisticraytracer_tpu_torch.ops import cuda_lib
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import REPLAY_PASSES
     from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
     from relativisticraytracer_tpu_torch.ops import pallas_march as pm
     from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
@@ -267,9 +323,13 @@ def main() -> None:
     lib = cuda_lib.kernels()
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s (nvcc {lib.build_seconds:.1f} s)",
           flush=True)
+    kernel = "?"
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = max((sym for _, _, syms in KERNELS.values() for sym in syms
+                          if sym in line), key=len, default=line.strip())
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     errs = {}
 
     # ---- phase 3: kernels vs plain versions on the card
@@ -297,8 +357,8 @@ def main() -> None:
         raise AssertionError("record kernel disagrees with its plain version")
     errs["record"] = fxy_err
 
-    order = pc.replay_order(rk.total)
-    ik, tk = pc.media_replay(scene, rk.rec, t, order=order, lib=lib)
+    order, rsteps = pc.replay_list(rk.total)
+    ik, tk = pc.media_replay(scene, rk.rec, t, order=order, lib=lib, n_steps=rsteps)
     ip = torch.zeros((3, h * w), device=dev)
     tp = torch.ones(h * w, device=dev)
     sel = order.long()
@@ -307,8 +367,9 @@ def main() -> None:
     want = torch.cat([ip, tp[None]])
     torch.testing.assert_close(got, want, rtol=2e-6, atol=5e-7)
     errs["replay"] = (got - want).abs().max().item()
-    print(f"phase 3 replay {order.numel()} rays: max |d(I,T)| {errs['replay']:.3g} "
-          f"(rtol 2e-6, atol 5e-7)", flush=True)
+    print(f"phase 3 replay {order.numel()} rays, {rsteps} steps (march, shade, composite "
+          f"passes): max |d(I,T)| {errs['replay']:.3g} (rtol 2e-6, atol 5e-7; bitwise "
+          f"{bool(torch.equal(got, want))})", flush=True)
 
     head_sky = skybox_from_array(procedural_starfield(2048, 4096, device=dev), dev)
     rng = np.random.default_rng(7)
@@ -397,7 +458,10 @@ def main() -> None:
         if not e < 1e-3:
             raise AssertionError(f"golden {name}: RMSE {e} >= 1e-3")
         vacuum = not (r.scene.enable_disk or r.scene.enable_clouds)
-        if ran != (["march_sky"] if vacuum else ["record", "replay", "sky"]):
+        want = ["march_sky"] if vacuum else sorted(
+            ["record", "sky"] + [k for k in REPLAY_PASSES
+                                 if r.scene.enable_clouds or k != "replay_shade_cloud"])
+        if ran != want:
             raise AssertionError(f"golden {name} ran the wrong kernels: {ran}")
 
     nosky_settings = RenderSettings(width=w, height=h, max_steps=steps)
@@ -422,7 +486,9 @@ def main() -> None:
     lib.reset_launches()
     frame = renderer.render(hcam, eff, 1.0)
     torch.cuda.synchronize()
-    launches = {k: lib.launches[k] for k in ("record", "replay", "sky")}
+    pass_launches = {k: lib.launches[k] for k in REPLAY_PASSES}
+    launches = {"record": lib.launches["record"], "replay": sum(pass_launches.values()),
+                "sky": lib.launches["sky"]}
     lat = [sync_ms(lambda i=i: renderer.render(hcam, eff, 1.0 + i / 24.0))[1]
            for i in range(5)]
     _, thr = sync_ms(lambda: [renderer.render(hcam, eff, 10.0 + i / 24.0)
@@ -436,18 +502,46 @@ def main() -> None:
     hscal = pc.pack_camera_scalars(hcam, eff, 1.0)
     hargs = (scene, hscal, hw, hh, scene.max_steps, pc.SLOTS, *head_sky.shape, dev)
     rec = pc._record_cuda(*hargs, lib)
-    horder = pc.replay_order(rec.total)
+    horder, hsteps = pc.replay_list(rec.total)
     masked = rec.hit > 0.5
-    inten, trans = pc.media_replay(scene, rec.rec, 1.0, order=horder, lib=lib)
+    inten, trans = pc.media_replay(scene, rec.rec, 1.0, order=horder, lib=lib,
+                                   n_steps=hsteps)
     bg = ps.sky_background_windowed(head_sky, rec.idx, rec.fx, rec.fy, eff, masked,
                                     lib=lib)
     ms = {
         "record": event_ms(lambda: pc._record_cuda(*hargs, lib)),
         "replay": event_ms(lambda: pc.media_replay(scene, rec.rec, 1.0, order=horder,
-                                                   lib=lib)),
+                                                   lib=lib, n_steps=hsteps)),
         "sky": event_ms(lambda: ps.sky_background_windowed(head_sky, rec.idx, rec.fx,
                                                            rec.fy, eff, masked, lib=lib)),
     }
+
+    # the replay's passes one by one, on the frame's step list
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
+    lengths = pc.step_lengths(rec.rec, horder)
+    offsets = pc.step_offsets(lengths)
+    pos, vel, emit = pc.step_list(hsteps, dev)
+    i_l, t_l = torch.zeros((3, hh, hw), device=dev), torch.ones((hh, hw), device=dev)
+    pass_ms = {
+        "replay_march": event_ms(lambda: lib.replay_march(consts, rec.rec, horder, offsets,
+                                                          pos, vel, stream)),
+        "replay_shade_disk": event_ms(lambda: lib.replay_shade(consts, 1.0, "disk", pos, vel,
+                                                               emit, stream)),
+        # the cloud pass finishes what the disk pass wrote: time the two, less the disk's
+        "replay_shade_cloud": event_ms(lambda: (
+            lib.replay_shade(consts, 1.0, "disk", pos, vel, emit, stream),
+            lib.replay_shade(consts, 1.0, "cloud", pos, vel, emit, stream))),
+        "replay_composite": event_ms(lambda: lib.replay_composite(
+            horder, offsets, emit, i_l, t_l, stream)),
+    }
+    pass_ms["replay_shade_cloud"] -= pass_ms["replay_shade_disk"]
+    list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit)) + offsets.numel() * 8
+    seg = rec.rec[:, 6].reshape(pc.SLOTS, -1)
+    seg = seg[seg > 0]
+    replay_shape = (f"longest ray {int(lengths.max())} steps, longest segment "
+                    f"{int(seg.max())}, rays over 1000 steps {int((lengths > 1000).sum())}, "
+                    f"segments {seg.numel()}")
+    del pos, vel, emit
 
     # the same frame through the plain versions, on the card, stage by stage
     t_start = time.perf_counter()
@@ -484,15 +578,20 @@ def main() -> None:
           f"{[round(x, 3) for x in lat]} ms, throughput {thr:.3f} ms/frame; "
           f"plain path {plain_frame_ms:.0f} ms; RMSE kernels vs plain {head_rmse:.3g}; "
           f"record hit mismatch {head_hit_mis:.2e}; replayed rays {horder.numel()}; "
-          f"launches {launches}; peak {peak / 2**20:.0f} MiB", flush=True)
+          f"launches {launches} (replay passes {pass_launches}); peak {peak / 2**20:.0f} MiB",
+          flush=True)
     for name in launches:
         print(f"  {name}: kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.1f} ms")
+    print(f"  replay passes (CUDA events): " + ", ".join(f"{k} {v:.3f} ms"
+                                                      for k, v in pass_ms.items())
+          + f"; step list {hsteps} steps, {list_bytes / 2**20:.1f} MiB; {replay_shape}",
+          flush=True)
     if not ok_frame:
         raise AssertionError(f"bad frame {frame_np.shape} {frame_np.dtype}")
     if not head_rmse < 1e-3:
         raise AssertionError(f"headline frame vs plain path: RMSE {head_rmse}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the frame path never launched: {launches}")
+    if min(launches.values()) < 1 or min(pass_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the frame path never launched: {lib.launches}")
 
     # the inline frame (march_sky), against the compact frame
     inline_settings = RenderSettings(width=hw, height=hh, media_pass="inline")
@@ -551,6 +650,14 @@ def main() -> None:
         p4, plain_march_ms = sync_ms(lambda: pm._march_camera_sky_plain(
             scene, hscal, hw, hh, steps_h, *head_sky.shape, dev))
     n_steps, n_disk, n_cloud = counter.counts()
+    per_ray = counter.per_ray.reshape(hh, hw).cpu().numpy()
+    # a persistent grid of the record kernel's residency: 4 blocks of 256
+    # threads an SM at its 56 registers
+    lanes = torch.cuda.get_device_properties(dev).multi_processor_count * 1024
+    simt = {"16x2": simt_efficiency(per_ray, 16, 2), "8x4": simt_efficiency(per_ray, 8, 4),
+            f"ideal refill ({lanes} lanes)": refill_efficiency(per_ray, lanes)}
+    if int(per_ray.sum()) != n_steps:
+        raise AssertionError(f"per-ray steps {int(per_ray.sum())} != ray-steps {n_steps}")
     errs["march_sky"] = max(errs["march_sky"], march_errs(k4, p4, True)[1])
     for name in ("march_sky", "march_camera", "march_planes"):
         plain_ms[name] = plain_march_ms
@@ -559,7 +666,8 @@ def main() -> None:
           f"(CUDA events); (I, T) of the three equal {same_it}; plain march "
           f"{plain_march_ms:.1f} ms with {n_steps} ray-steps "
           f"({n_steps / (hw * hh):.1f} per ray), {n_disk} disk-probe and {n_cloud} "
-          f"cloud-probe steps", flush=True)
+          f"cloud-probe steps; record SIMT efficiency (steps / 32 x warp's longest): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in simt.items()), flush=True)
     if not same_it:
         raise AssertionError("the three march kernels disagree on (I, T)")
 
@@ -600,7 +708,7 @@ def main() -> None:
     # ---- phase 8: shards on one card, one after another
     mesh = sharding.make_mesh([dev] * 8, (4, 2))
     for label, sset, whole_np, kernels in (
-        ("compact, interleave auto", settings, frame_np, ("record", "replay", "sky")),
+        ("compact, interleave auto", settings, frame_np, ("record",) + REPLAY_PASSES + ("sky",)),
         ("inline", inline_settings, inline_np, ("march_planes",)),
     ):
         fn = sharding.make_sharded_renderer(scene, sset, mesh)
@@ -614,18 +722,41 @@ def main() -> None:
                                             interleave)
         shard_ms = [sync_ms(program)[1] for _, _, program in programs]
         equal = np.array_equal(tiled, whole_np)
+        kernel_ms = ""
+        if label == "inline":  # each shard's march_planes launch, by CUDA events
+            march_planes, events = lib.march_planes, []
+
+            def timed_march_planes(*args, **kwargs):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                march_planes(*args, **kwargs)
+                ev[1].record()
+                events.append(ev)
+
+            lib.march_planes = timed_march_planes
+            try:
+                fn(hcam, eff, 1.0, head_sky)
+                torch.cuda.synchronize()
+            finally:
+                del lib.march_planes
+            per_launch = [a.elapsed_time(b) for a, b in events]
+            kernel_ms = (f"; march_planes per launch {[round(x, 3) for x in per_launch]} ms "
+                         f"(sum {sum(per_launch):.3f})")
         print(f"phase 8 shards 4x2 on one card ({label}; shards run one after another on "
               f"{kind}): bitwise the single-device frame {equal}; shard ms "
               f"{[round(x, 3) for x in shard_ms]} (max {max(shard_ms):.3f}, sum "
-              f"{sum(shard_ms):.3f}); launches {shard_launches}", flush=True)
+              f"{sum(shard_ms):.3f}){kernel_ms}; launches {shard_launches}", flush=True)
         if not equal or min(shard_launches[k] for k in kernels) < 1:
             raise AssertionError(f"sharded frame ({label}) failed: {shard_launches}")
         if label == "inline":
             launches["march_planes"] = shard_launches["march_planes"]
 
     if opts.trace:
-        print(trace_frame(lambda: renderer.render(hcam, eff, 1.0), "headline"), flush=True)
-        print(trace_frame(lambda: inline.render(hcam, eff, 1.0), "inline"), flush=True)
+        line, syncs = trace_frame(lambda: renderer.render(hcam, eff, 1.0), "headline")
+        print(line, flush=True)
+        print(trace_frame(lambda: inline.render(hcam, eff, 1.0), "inline")[0], flush=True)
+        if syncs != 1:
+            raise AssertionError(f"compact frame: {syncs} cudaStreamSynchronize, expected 1")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

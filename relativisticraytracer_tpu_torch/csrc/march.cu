@@ -58,10 +58,11 @@ static __device__ MarchResult fused_march(const SceneConsts& c, float time, int 
         }
         bool zd, zc;
         media_zones(c, rel, r2, zd, zc);
-        float h = adaptive_h(c, r2, zd, zc);
+        float h, h6;
+        adaptive_h(c, r2, zd, zc, h, h6);
         bool pd, pc;
         media_probes(c, rel, zd, zc, pd, pc);
-        rk4_step(c, p, v, h);  // rel keeps the PRE-step position
+        rk4_step(c, p, v, h, h6);  // rel keeps the PRE-step position
         if (pd || pc) {        // a probe implies its zone: render/march.compose_step
             float er = 0.0f, eg = 0.0f, eb = 0.0f, op = 0.0f;
             if (pd) disk_block(c, rel, r2, v, zd, time, er, eg, eb, op);

@@ -16,7 +16,10 @@
 // Constants that the JAX package folds in double from Python floats (e.g.
 // -1.5 * eh, (eh * 1.01) ** 2, the probe bounds) arrive precomputed in
 // SceneConsts, rounded to float32 once on the host
-// (ops/cuda_lib.scene_consts), so one build serves every scene.
+// (ops/cuda_lib.scene_consts), so one build serves every scene. So do the
+// four step sizes h = step_size * m and their h / 6: float32 products and
+// quotients folded with numpy, the same IEEE round-to-nearest bits as the
+// device's mul.rn.f32 / div.rn.f32, so no step divides.
 #pragma once
 
 #include <cstdint>
@@ -34,6 +37,10 @@ struct SceneConsts {
     float capture_r2;      // (eh*1.01)**2
     float escape_r2;       // escape_radius**2
     float step_size;       // step_size_m
+    // adaptive step sizes (render/march.adaptive_h) and h / 6 (rk4_step):
+    // near the hole (m = 0.1), disk zone (0.3), cloud zone (0.5), else (1.0)
+    float h_near, h_disk, h_cloud, h_far;
+    float h6_near, h6_disk, h6_cloud, h6_far;
     float disk_zone_y;     // disk_h_m*5
     float disk_zone_r2;    // (disk_out_m+5)**2
     float cloud_zone_y;    // cloud_h_m*1.5
@@ -241,8 +248,9 @@ __device__ __forceinline__ V3 recenter(const SceneConsts& c, V3 p) {
     return v3(p.x - c.mass_pos[0], p.y - c.mass_pos[1], p.z - c.mass_pos[2]);
 }
 
-// physics/integrators.rk4_step (stage order and sum order kept)
-__device__ __forceinline__ void rk4_step(const SceneConsts& c, V3& p, V3& v, float h) {
+// physics/integrators.rk4_step (stage order and sum order kept); h6 is
+// h / 6, looked up with h (adaptive_h)
+__device__ __forceinline__ void rk4_step(const SceneConsts& c, V3& p, V3& v, float h, float h6) {
     V3 p0 = p, v0 = v;
     V3 kv1 = geodesic_acc(c, recenter(c, p0), v0);
     V3 kp1 = v0;
@@ -258,7 +266,6 @@ __device__ __forceinline__ void rk4_step(const SceneConsts& c, V3& p, V3& v, flo
     V3 kp4 = v4;
     V3 kv_sum = add(kv1, add(mul(kv2, 2.0f), add(mul(kv3, 2.0f), kv4)));
     V3 kp_sum = add(kp1, add(mul(kp2, 2.0f), add(mul(kp3, 2.0f), kp4)));
-    float h6 = h / 6.0f;
     p = add(p0, mul(kp_sum, h6));
     v = add(v0, mul(kv_sum, h6));
 }
@@ -286,11 +293,13 @@ __device__ __forceinline__ void media_zones(const SceneConsts& c, V3 rel, float 
     zc = (abs_y < c.cloud_zone_y) && (r2 < c.cloud_zone_r2);
 }
 
-// render/march.adaptive_h (for an active ray): a float32 product
-__device__ __forceinline__ float adaptive_h(const SceneConsts& c, float r2, bool zd, bool zc) {
+// render/march.adaptive_h (for an active ray): the float32 product
+// step_size * m, and h / 6, both folded on the host
+__device__ __forceinline__ void adaptive_h(const SceneConsts& c, float r2, bool zd, bool zc,
+                                           float& h, float& h6) {
     bool near_bh = r2 < 324.0f;  // 18.0 ** 2
-    float m = near_bh ? 0.1f : (zd ? 0.3f : (zc ? 0.5f : 1.0f));
-    return c.step_size * m;
+    h = near_bh ? c.h_near : (zd ? c.h_disk : (zc ? c.h_cloud : c.h_far));
+    h6 = near_bh ? c.h6_near : (zd ? c.h6_disk : (zc ? c.h6_cloud : c.h6_far));
 }
 
 // render/march.media_probes (for an active ray)

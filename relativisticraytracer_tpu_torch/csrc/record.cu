@@ -8,21 +8,27 @@
 // What bounds it on an H100: arithmetic issue. Each step is one RK4 step
 // (four geodesic_acc evaluations, ~250 float ops with one rsqrt each) plus
 // ~20 ops of zone/probe/record bookkeeping; memory traffic is one write of
-// 11 + 7*slots planes per pixel at the end (~256 MB at 1080p, under 0.1 ms
-// of HBM time). The second limit is divergence: a warp runs until its
-// slowest ray is captured or escapes (up to max_steps near the photon ring).
+// 11 + 7*slots planes per pixel (~256 MB at 1080p, under 0.1 ms of HBM
+// time). Built with -fmad=false, every op issues alone, so half the fp32
+// peak is the ceiling.
 //
-// What the design does about it: the TPU kernel's structure (lane tiles,
-// f32 mask planes carried through a while loop, per-40-step commit conds)
-// answered the cost of vector conds on a TPU; here each thread runs its own
-// loop and leaves it at its own termination, so finished rays cost nothing.
-// 16x16 blocks (as the reference CUDA renderer launched) keep a warp on a
-// compact 16x2 pixel patch, whose rays terminate at similar steps.
+// What the design does about it: each thread leaves its loop at its own
+// capture or escape, so finished rays cost nothing (the TPU kernel's lane
+// tiles, f32 mask planes and per-40-step commit conds answered the cost of
+// vector conds on a TPU). 16x16 blocks keep a warp on a 16x2 pixel patch:
+// at the 1080p headline those rays end within a few steps of each other,
+// so the warps lose almost nothing to divergence (SIMT efficiency 0.996,
+// PERF.md), and a persistent grid that refills lanes from a global pixel
+// counter measured slower: its per-step votes cost more than the
+// divergence it removes. The step sizes and h / 6 come folded from the
+// host (march_common.cuh), so no step divides. The wrapper zeroes the
+// record planes (one memset) before the launch; threads write records only.
+//
 // Segments are recorded per step with exact boundaries (the JAX kernel
 // merges gaps inside each 40-step block, which replays to the same (I, T):
 // gap steps contribute exact zeros). Slot-overflow merging and the
 // end-of-loop flush `len = i - entry` are kept. The per-pixel total length
-// feeds the replay's compaction. A shard of a spatially tiled frame passes
+// sizes the replay's step list. A shard of a spatially tiled frame passes
 // its origin and strip maps in the RayGrid (march_common.cuh::gen_ray).
 #include <cuda_runtime.h>
 
@@ -42,8 +48,6 @@ __global__ void __launch_bounds__(256) record_kernel(
     V3 p, v;
     gen_ray(cam, g, x, y, p, v);
 
-    for (int j = 0; j < slots * 7; ++j) rec[(size_t)j * n + pix] = 0.0f;
-
     // ---- vacuum march with per-step segment recording
     bool hit = false, in_seg = false;
     int k = 0, entry = 0, i = 0;
@@ -56,9 +60,10 @@ __global__ void __launch_bounds__(256) record_kernel(
         }
         bool zd, zc;
         media_zones(c, rel, r2, zd, zc);
-        float h = adaptive_h(c, r2, zd, zc);
+        float h, h6;
+        adaptive_h(c, r2, zd, zc, h, h6);
         V3 pn = p, vn = v;
-        rk4_step(c, pn, vn, h);
+        rk4_step(c, pn, vn, h, h6);
         bool pd, pc;
         media_probes(c, rel, zd, zc, pd, pc);
         bool probe = pd || pc;
@@ -104,6 +109,7 @@ extern "C" int rrt_scene_consts_size() { return (int)sizeof(SceneConsts); }
 
 extern "C" int rrt_ray_grid_size() { return (int)sizeof(RayGrid); }
 
+// `rec` must hold zeros (the wrapper's memset).
 extern "C" int rrt_record(const SceneConsts* c, const CamScalars* cam, const RayGrid* g,
                           int width, int height, int max_steps, int slots, int sky_h, int sky_w,
                           float* hit, int* idx, float* fx, float* fy, float* rec, float* total,

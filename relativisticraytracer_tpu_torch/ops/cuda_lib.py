@@ -79,6 +79,10 @@ class SceneConsts(ctypes.Structure):
         ("mass_pos", ctypes.c_float * 3),
         ("capture_r2", ctypes.c_float), ("escape_r2", ctypes.c_float),
         ("step_size", ctypes.c_float),
+        ("h_near", ctypes.c_float), ("h_disk", ctypes.c_float),
+        ("h_cloud", ctypes.c_float), ("h_far", ctypes.c_float),
+        ("h6_near", ctypes.c_float), ("h6_disk", ctypes.c_float),
+        ("h6_cloud", ctypes.c_float), ("h6_far", ctypes.c_float),
         ("disk_zone_y", ctypes.c_float), ("disk_zone_r2", ctypes.c_float),
         ("cloud_zone_y", ctypes.c_float), ("cloud_zone_r2", ctypes.c_float),
         ("disk_k2", ctypes.c_float), ("disk_rlo2", ctypes.c_float),
@@ -145,6 +149,12 @@ def scene_consts(scene: SceneConfig) -> SceneConsts:
         cloud_lum=scene.cloud_luminosity, cloud_opacity=scene.cloud_opacity,
     )
     c = SceneConsts(**{k: float(np.float32(v)) for k, v in vals.items()})
+    # render/march.adaptive_h's step sizes, float32 products, and h / 6 for
+    # rk4_step, a float32 quotient (IEEE round-to-nearest, as div.rn.f32)
+    for name, m in (("near", 0.1), ("disk", 0.3), ("cloud", 0.5), ("far", 1.0)):
+        h = np.float32(scene.step_size_m) * np.float32(m)
+        setattr(c, f"h_{name}", float(h))
+        setattr(c, f"h6_{name}", float(h / np.float32(6.0)))
     c.spin_axis[:] = [float(np.float32(a)) for a in scene.spin_axis]
     c.mass_pos[:] = [float(np.float32(a)) for a in scene.mass_pos]
     c.enable_disk = int(scene.enable_disk)
@@ -194,7 +204,10 @@ def _flags(fmad: bool):
     return ARCH_FLAGS + BASE_FLAGS + [f"-fmad={'true' if fmad else 'false'}"]
 
 
-KERNELS = ("record", "replay", "sky", "march_sky", "march_camera", "march_planes")
+# The replay's passes (csrc/replay.cu): march, disk and cloud shading,
+# compositing; each launch counts under its own name.
+REPLAY_PASSES = ("replay_march", "replay_shade_disk", "replay_shade_cloud", "replay_composite")
+KERNELS = ("record",) + REPLAY_PASSES + ("sky", "march_sky", "march_camera", "march_planes")
 
 
 class KernelLibrary:
@@ -265,14 +278,16 @@ class KernelLibrary:
         return out
 
     def _declare(self):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib = self._lib
         sc, cam = ctypes.POINTER(SceneConsts), ctypes.POINTER(CamScalars)
         argtypes = {
             "scene_consts_size": [],
             "ray_grid_size": [],
             "record": [sc, cam, ctypes.POINTER(RayGrid)] + [ci] * 6 + [vp] * 7,
-            "replay": [sc, cf, ci, ci, ci] + [vp] * 5,
+            "replay_march": [sc, ci, ci, ci] + [vp] * 6,
+            "replay_shade": [sc, cf, ci, cl] + [vp] * 4,
+            "replay_composite": [ci, ci, cl] + [vp] * 6,
             "sky": [ci, ci] + [vp] * 10,
             "march_sky": [sc, cam] + [ci] * 5 + [vp] * 6,
             "march_camera": [sc, cam] + [ci] * 3 + [vp] * 5,
@@ -293,6 +308,7 @@ class KernelLibrary:
 
     def record(self, consts, cam, grid, width, height, max_steps, slots, sky_h, sky_w,
                hit, idx, fx, fy, rec, total, stream) -> None:
+        """`rec` must hold zeros: the kernel writes records only."""
         shape = (height, width)
         check("record", [(hit, torch.float32, shape),
                          (idx, torch.int32, (3,) + shape),
@@ -307,20 +323,52 @@ class KernelLibrary:
                 fx.data_ptr(), fy.data_ptr(), rec.data_ptr(), total.data_ptr(), stream)
         self._launched("record", err)
 
-    def replay(self, consts, time, n, m, slots, rec, order, intensity, trans,
-               stream) -> None:
-        h, w = trans.shape
-        if h * w != n:
-            raise ValueError(f"replay: {n} pixels vs planes {tuple(trans.shape)}")
-        check("replay", [(rec, torch.float32, (slots, 7, h, w)),
-                         (order, torch.int32, (m,)),
-                         (intensity, torch.float32, (3, h, w)),
-                         (trans, torch.float32, (h, w))])
+    def replay_march(self, consts, rec, order, offsets, pos, vel, stream) -> None:
+        """Pass 1: each recorded segment of the listed rays -> its steps'
+        PRE-step rel and POST-step v, `pos` [S, 4] (rel, v.x) and `vel`
+        [S, 2] (v.y, v.z), from its ray's offset (int64 exclusive prefix
+        sums) on."""
+        slots, _, h, w = rec.shape
+        m, n_steps = order.numel(), pos.shape[0]
+        check("replay_march", [(rec, torch.float32, (slots, 7, h, w)),
+                               (order, torch.int32, (m,)), (offsets, torch.int64, (m,)),
+                               (pos, torch.float32, (n_steps, 4)),
+                               (vel, torch.float32, (n_steps, 2))])
         with torch.cuda.device(rec.device):
-            err = self._lib.rrt_replay(
-                ctypes.byref(consts), time, n, m, slots, rec.data_ptr(),
-                order.data_ptr(), intensity.data_ptr(), trans.data_ptr(), stream)
-        self._launched("replay", err)
+            err = self._lib.rrt_replay_march(
+                ctypes.byref(consts), h * w, m, slots, rec.data_ptr(), order.data_ptr(),
+                offsets.data_ptr(), pos.data_ptr(), vel.data_ptr(), stream)
+        self._launched("replay_march", err)
+
+    def replay_shade(self, consts, time, medium, pos, vel, emit, stream) -> None:
+        """Pass 2, one thread per step: medium "disk" writes every step's
+        (r, g, b, transmittance) to `emit` [S, 4] (the opacity in place of
+        the transmittance on cloud-probe steps); "cloud" then adds its
+        terms to those steps and writes their transmittance."""
+        n_steps = pos.shape[0]
+        check(f"replay_shade_{medium}", [(pos, torch.float32, (n_steps, 4)),
+                                         (vel, torch.float32, (n_steps, 2)),
+                                         (emit, torch.float32, (n_steps, 4))])
+        with torch.cuda.device(pos.device):
+            err = self._lib.rrt_replay_shade(
+                ctypes.byref(consts), time, ("disk", "cloud").index(medium), n_steps,
+                pos.data_ptr(), vel.data_ptr(), emit.data_ptr(), stream)
+        self._launched(f"replay_shade_{medium}", err)
+
+    def replay_composite(self, order, offsets, emit, intensity, trans, stream) -> None:
+        """Pass 3: each listed ray composites its steps in order and writes
+        I and T to its pixel of `intensity` [3, H, W] and `trans` [H, W]."""
+        h, w = trans.shape
+        m, n_steps = order.numel(), emit.shape[0]
+        check("replay_composite", [(order, torch.int32, (m,)), (offsets, torch.int64, (m,)),
+                                   (emit, torch.float32, (n_steps, 4)),
+                                   (intensity, torch.float32, (3, h, w)),
+                                   (trans, torch.float32, (h, w))])
+        with torch.cuda.device(trans.device):
+            err = self._lib.rrt_replay_composite(
+                h * w, m, n_steps, order.data_ptr(), offsets.data_ptr(), emit.data_ptr(),
+                intensity.data_ptr(), trans.data_ptr(), stream)
+        self._launched("replay_composite", err)
 
     def sky(self, use_q4, idx, fx, fy, masked, qr, qg, qb, q4, bg, stream) -> None:
         shape = tuple(masked.shape)

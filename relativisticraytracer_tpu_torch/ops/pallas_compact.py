@@ -16,11 +16,20 @@ emission and zero opacity wherever they are False. So the march splits:
      record planes are not a contract — hit, sky coordinates and the
      replayed (I, T) are.
   B) the REPLAY pass (`media_replay`): each ray re-integrates only its
-     recorded segments, back to back, and shades them.
+     recorded segments, back to back, and shades them. On the card it runs
+     as three passes over a step list in device memory (csrc/replay.cu):
+     march (one thread per recorded segment: each step's pre-step rel and
+     post-step v), shade (one thread per step: disk, then cloud, the last
+     one also the step's transmittance) and composite (one thread per ray,
+     its steps in order). A ray's offset into the list is the exclusive
+     prefix sum of the listed rays' lengths (`step_offsets`).
 
 Each pass has a hand-written CUDA kernel (csrc/record.cu, csrc/replay.cu)
-and its plain PyTorch version. The wrapper launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors; nothing else picks.
+and its plain PyTorch version (`_record_plain`, `_replay_plain`). The
+wrapper launches the kernel for CUDA tensors and runs the plain version for
+CPU tensors; nothing else picks. The replay's three passes also have plain
+twins (`_replay_passes_plain`), which run the step-list bookkeeping on the
+CPU.
 
 The final frame is  hdr = I_B + bg * (0 if captured else T_B)
 (raymarcher.cu:123-150), composited in `_compact_tile_rgba`.
@@ -185,7 +194,7 @@ def _record_cuda(scene: SceneConfig, scal, width: int, height: int,
         idx=torch.empty((3,) + shape, dtype=torch.int32, device=device),
         fx=torch.empty((3,) + shape, **f32),
         fy=torch.empty((3,) + shape, **f32),
-        rec=torch.empty((slots, 7) + shape, **f32),
+        rec=torch.zeros((slots, 7) + shape, **f32),  # one memset; threads write records only
         total=torch.empty(shape, **f32),
     )
     lib.record(cuda_lib.scene_consts(scene), cuda_lib.cam_scalars(scal),
@@ -312,16 +321,157 @@ def _replay_plain_sorted(scene: SceneConfig, rec: torch.Tensor, time,
     return inten, trans
 
 
-def replay_order(total: torch.Tensor) -> torch.Tensor:
-    """The rays to replay, longest replay first: int32 flat pixel indices
-    of total > 0, sorted by total length descending (ties in pixel order).
-    Takes the place of the JAX package's row compaction and static
-    `media_capacity` buffer (pallas_compact.py:674-744); `nonzero` waits
-    for the device."""
+def replay_list(total: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(order, n_steps): the rays to replay, longest replay first (int32
+    flat pixel indices of total > 0, sorted by total length descending,
+    ties in pixel order), and the sum of their lengths, the size of the
+    replay's step list. Takes the place of the JAX package's row
+    compaction and static `media_capacity` buffer
+    (pallas_compact.py:674-744).
+
+    `nonzero` waits for the device; it is the only wait. The sum is copied
+    to pinned host memory before it on the same stream, so it has arrived
+    when `nonzero` returns and reading it waits for nothing."""
     flat = total.reshape(-1)
+    n_steps = flat.to(torch.int64).sum()  # lengths are integers: exact
+    if flat.is_cuda:
+        host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        n_steps = host.copy_(n_steps, non_blocking=True)
     idx = torch.nonzero(flat > 0.0).squeeze(1)
     order = torch.argsort(flat[idx], descending=True, stable=True)
-    return idx[order].to(torch.int32)
+    return idx[order].to(torch.int32), int(n_steps)
+
+
+def replay_order(total: torch.Tensor) -> torch.Tensor:
+    """The rays to replay, longest replay first (see `replay_list`)."""
+    return replay_list(total)[0]
+
+
+def step_lengths(rec: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """int64 [m]: each listed ray's replay length, its slots' lengths
+    summed (integers below 2^24, so the float sum is exact)."""
+    slots = rec.shape[0]
+    return rec[:, 6].reshape(slots, -1)[:, order.long()].sum(0).to(torch.int64)
+
+
+def step_offsets(lengths: torch.Tensor) -> torch.Tensor:
+    """Each listed ray's first entry in the step list: the exclusive prefix
+    sum of the lengths, on the device."""
+    return torch.cumsum(lengths, 0) - lengths
+
+
+def _replay_cuda(scene: SceneConfig, rec: torch.Tensor, time, order: torch.Tensor,
+                 n_steps: Optional[int], lib):
+    """csrc/replay.cu's three passes (four launches) over a step list of
+    `n_steps` entries, the sum of the listed rays' lengths (None: summed
+    here, which waits for the device). Returns (I [3, H, W], T [H, W])."""
+    lib = cuda_lib.resolve(lib)
+    _, _, h, w = rec.shape
+    device = rec.device
+    inten = torch.zeros((3, h, w), dtype=torch.float32, device=device)
+    trans = torch.ones((h, w), dtype=torch.float32, device=device)
+    lengths = step_lengths(rec, order)
+    offsets = step_offsets(lengths)
+    if n_steps is None:
+        n_steps = int(lengths.sum())
+    if n_steps == 0:
+        return inten, trans
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(device)
+    pos, vel, emit = step_list(n_steps, device)
+    lib.replay_march(consts, rec, order, offsets, pos, vel, stream)
+    lib.replay_shade(consts, float(time), "disk", pos, vel, emit, stream)  # writes every step
+    if scene.enable_clouds:
+        lib.replay_shade(consts, float(time), "cloud", pos, vel, emit, stream)
+    lib.replay_composite(order, offsets, emit, inten, trans, stream)
+    return inten, trans
+
+
+def step_list(n_steps: int, device):
+    """The replay kernels' step list, uninitialised: pos [S, 4] (PRE-step
+    rel, POST-step v.x), vel [S, 2] (v.y, v.z) and emit [S, 4] (r, g, b,
+    the step's transmittance)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((n_steps, 4), **f32), torch.empty((n_steps, 2), **f32),
+            torch.empty((n_steps, 4), **f32))
+
+
+# Plain twins of the three passes (CPU bookkeeping tests; the CPU replay
+# itself is `_replay_plain`).
+
+
+def _replay_march_plain(scene: SceneConfig, rec: torch.Tensor, sel: torch.Tensor,
+                        offsets: torch.Tensor, n_steps: int):
+    """Pass 1: (pos [S, 4], vel [S, 2]) — every replayed step's PRE-step
+    rel and POST-step v (pos holds rel and v.x, vel v.y and v.z), each
+    recorded segment of the listed rays (`sel`, flat pixels) from its ray's
+    offset plus its earlier slots' lengths."""
+    slots = rec.shape[0]
+    flat = rec.reshape(slots, 7, -1)
+    pos = torch.empty((n_steps, 4), dtype=torch.float32, device=rec.device)
+    vel = torch.empty((n_steps, 2), dtype=torch.float32, device=rec.device)
+    start = offsets.clone()
+    for s in range(slots):
+        live = torch.nonzero(flat[s, 6, sel] > 0.0).squeeze(1)
+        if live.numel() == 0:
+            break  # slots fill in order: no ray has a later one
+        src = flat[s][:, sel[live]]
+        p, v = Vec3(src[0], src[1], src[2]), Vec3(src[3], src[4], src[5])
+        left, at = src[6], start[live]
+        start[live] += left.to(torch.int64)
+        while left.numel():
+            rel = _recenter(scene, p)
+            r2 = rel.x * rel.x + rel.y * rel.y + rel.z * rel.z
+            zd, zc = media_zones(scene, rel, r2)
+            h = adaptive_h(scene, r2, zd, zc, torch.ones_like(zd))
+            p, v = rk4_step(scene, p, v, h)
+            pos[at] = torch.stack([rel.x, rel.y, rel.z, v.x], dim=1)
+            vel[at] = torch.stack([v.y, v.z], dim=1)
+            at, left = at + 1, left - 1.0
+            keep = torch.nonzero(left > 0.0).squeeze(1)
+            at, left = at[keep], left[keep]
+            p, v = (a.map(lambda c: c[keep]) for a in (p, v))
+    return pos, vel
+
+
+def _replay_shade_plain(scene: SceneConfig, pos: torch.Tensor, vel: torch.Tensor,
+                        time) -> torch.Tensor:
+    """Pass 2: emit [S, 4] — each step's emission (r, g, b), disk then
+    cloud under its probes (zeros where both are False), and its
+    transmittance exp(-(opacity * h)) (render/march.compose_step)."""
+    rel, v = Vec3(pos[:, 0], pos[:, 1], pos[:, 2]), Vec3(pos[:, 3], vel[:, 0], vel[:, 1])
+    r2 = rel.x * rel.x + rel.y * rel.y + rel.z * rel.z
+    zd, zc = media_zones(scene, rel, r2)
+    pd, pc = media_probes(scene, rel, zd, zc, torch.ones_like(zd))
+    emit, op = _media_contribution(scene, rel, r2, v, zd, zc, _time_tensor(time, pos.device),
+                                   probe_disk=pd, probe_cloud=pc)
+    h = adaptive_h(scene, r2, zd, zc, torch.ones_like(zd))
+    return torch.stack([emit.x, emit.y, emit.z, torch.exp(-(op * h))], dim=1)
+
+
+def _replay_composite_plain(emit: torch.Tensor, offsets: torch.Tensor):
+    """Pass 3: (I [3, m], T [m]) — each listed ray composites its steps
+    [offsets[j], offsets[j+1]) in order (render/march.compose_step)."""
+    lengths = torch.diff(offsets, append=offsets.new_tensor([emit.shape[0]]))
+    m = offsets.numel()
+    inten = torch.zeros((3, m), dtype=torch.float32, device=emit.device)
+    trans = torch.ones(m, dtype=torch.float32, device=emit.device)
+    for j in range(int(lengths.max()) if m else 0):
+        live = torch.nonzero(lengths > j).squeeze(1)
+        e = emit[offsets[live] + j]
+        factor = (1.0 - e[:, 3]) * trans[live]
+        inten[:, live] = inten[:, live] + e[:, :3].T * factor
+        trans[live] = trans[live] * e[:, 3]
+    return inten, trans
+
+
+def _replay_passes_plain(scene: SceneConfig, rec: torch.Tensor, time, sel: torch.Tensor):
+    """The three passes composed, as the kernels run them: (I [3, m],
+    T [m]) of the rays `sel` in its order, as `_replay_plain` returns."""
+    sel = sel.long()
+    lengths = step_lengths(rec, sel)
+    offsets = step_offsets(lengths)
+    pos, vel = _replay_march_plain(scene, rec, sel, offsets, int(lengths.sum()))
+    return _replay_composite_plain(_replay_shade_plain(scene, pos, vel, time), offsets)
 
 
 def media_replay(
@@ -330,13 +480,16 @@ def media_replay(
     time,
     order: Optional[torch.Tensor] = None,
     lib=None,
+    n_steps: Optional[int] = None,
 ) -> Tuple[Vec3, torch.Tensor]:
     """The B pass: replay recorded media segments. `rec` is the record
     pass's [slots, 7, H, W] planes; `order` the int32 flat pixel indices
     to replay (None: every pixel, in image order). Returns (intensity Vec3,
     transmittance), [H, W]; pixels not replayed get I = 0, T = 1 — what
-    replaying their empty records gives. csrc/replay.cu for CUDA tensors,
-    the plain version for CPU tensors."""
+    replaying their empty records gives. csrc/replay.cu's three passes for
+    CUDA tensors, the plain version for CPU tensors. `n_steps`, the sum of
+    the listed rays' lengths (`replay_list`), sizes the kernels' step list
+    without a host sync; None sums it here, which waits for the device."""
     if rec.dim() != 4 or rec.shape[1] != 7:
         raise ValueError(f"records must be [slots, 7, H, W], got {tuple(rec.shape)}")
     slots, _, h, w = rec.shape
@@ -347,11 +500,7 @@ def media_replay(
     if order.dtype != torch.int32 or order.dim() != 1 or order.device != device:
         raise ValueError("order must be a 1-D int32 tensor on the records' device")
     if device.type == "cuda":
-        inten = torch.zeros((3, h, w), dtype=torch.float32, device=device)
-        trans = torch.ones((h, w), dtype=torch.float32, device=device)
-        cuda_lib.resolve(lib).replay(
-            cuda_lib.scene_consts(scene), float(time), n, order.numel(), slots,
-            rec, order, inten, trans, cuda_lib.current_stream(device))
+        inten, trans = _replay_cuda(scene, rec, time, order, n_steps, lib)
     elif device.type == "cpu":
         sel = order.to(torch.long)
         inten = torch.zeros((3, n), dtype=torch.float32)
@@ -368,9 +517,9 @@ def media_replay_sorted(scene: SceneConfig, record: Record, time,
     """The B pass over the rays that recorded media only, longest first,
     so each warp holds rays of similar replay length. A ray's replay
     depends only on its own records, so this is bitwise the image-layout
-    replay."""
-    return media_replay(scene, record.rec, time,
-                        order=replay_order(record.total), lib=lib)
+    replay. The list's one host sync also brings its step count."""
+    order, n_steps = replay_list(record.total)
+    return media_replay(scene, record.rec, time, order=order, lib=lib, n_steps=n_steps)
 
 
 # --------------------------------------------------------------------------

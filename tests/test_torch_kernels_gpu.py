@@ -10,8 +10,8 @@ tests/conftest.py:
 Tolerances: the record and fused march kernels' hit masks agree with the
 plain versions' on all but < 1e-3 of the pixels, and their quad indices
 where hits agree; (I, T) and v to rtol 2e-6 / atol 5e-7
-(tests/test_compact.py:180); the sky bitwise on unmasked pixels; frames
-(inline vs compact, sharded vs whole) bitwise. Built with -fmad=false,
+(tests/test_compact.py:180); the replay and the sky (on unmasked pixels)
+bitwise; frames (inline vs compact, sharded vs whole) bitwise. Built with -fmad=false,
 the kernels have matched their plain versions bitwise on an H100."""
 
 import pathlib
@@ -26,7 +26,7 @@ from relativisticraytracer_tpu_torch.config import (
     SceneConfig,
     effects_off,
 )
-from relativisticraytracer_tpu_torch.core.vecmath import Vec3
+from relativisticraytracer_tpu_torch.core.vecmath import Vec3, fdiv
 from relativisticraytracer_tpu_torch.media.densities import cloud_probe_bounds, disk_probe_bounds
 from relativisticraytracer_tpu_torch.ops import cuda_lib
 from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
@@ -35,6 +35,7 @@ from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
 from relativisticraytracer_tpu_torch.ops.camera_rays import rays_from_scalars
 from relativisticraytracer_tpu_torch.parallel.sharding import make_mesh, make_sharded_renderer
 from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
+from relativisticraytracer_tpu_torch.render.march import adaptive_h
 from relativisticraytracer_tpu_torch.render.pipeline import Renderer
 from relativisticraytracer_tpu_torch.render.skybox import sky_coords, skybox_from_array
 
@@ -74,16 +75,24 @@ def test_record_kernel_matches_plain(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("sorted_order", [True, False])
 def test_replay_kernel_matches_plain(cuda, sorted_order):
+    """The replay's march, shade and composite kernels give each ray the
+    plain replay's (I, T) bitwise, for the longest-first list (its step
+    count from the list's one sync) and for image order."""
     k, _ = _record_both(cuda)
     scene = SceneConfig()
-    order = pc.replay_order(k.total) if sorted_order else None
-    ik, tk = pc.media_replay(scene, k.rec, 10.0, order=order)
-    sel = (order if sorted_order else torch.arange(k.hit.numel(), device=cuda,
-                                                    dtype=torch.int32)).long()
+    lib = cuda_lib.kernels()
+    lib.reset_launches()
+    if sorted_order:
+        order, n_steps = pc.replay_list(k.total)
+        ik, tk = pc.media_replay(scene, k.rec, 10.0, order=order, n_steps=n_steps)
+    else:
+        order = torch.arange(k.hit.numel(), device=cuda, dtype=torch.int32)
+        ik, tk = pc.media_replay(scene, k.rec, 10.0)
+    assert all(lib.launches[name] == 1 for name in cuda_lib.REPLAY_PASSES)
+    sel = order.long()
     ip, tp = pc._replay_plain(scene, k.rec, 10.0, sel)
-    got = torch.stack(list(ik)).reshape(3, -1)[:, sel]
-    torch.testing.assert_close(got, ip, rtol=2e-6, atol=5e-7)
-    torch.testing.assert_close(tk.reshape(-1)[sel], tp, rtol=2e-6, atol=5e-7)
+    assert torch.equal(torch.stack(list(ik)).reshape(3, -1)[:, sel], ip)
+    assert torch.equal(tk.reshape(-1)[sel], tp)
 
 
 @pytest.mark.gpu
@@ -137,8 +146,14 @@ def test_renderer_on_the_card_passes_goldens(cuda, name, kw, fx_on):
     want = np.load(ROOT / "goldens" / f"{name}.npy")
     d = got[..., :3].astype(int) - want[..., :3].astype(int)
     assert np.sqrt(np.mean((d / 255.0) ** 2)) < 1e-3
-    # no medium: the fused inline march (kernel 4), as in the JAX package
-    ran = {"march_sky"} if not kw.get("enable_disk", True) else {"record", "replay", "sky"}
+    # no medium: the fused inline march (kernel 4), as in the JAX package;
+    # else record, the replay's passes (no cloud pass without clouds), sky
+    if not kw.get("enable_disk", True):
+        ran = {"march_sky"}
+    else:
+        ran = {"record", "sky"} | set(cuda_lib.REPLAY_PASSES)
+        if not kw.get("enable_clouds", True):
+            ran.discard("replay_shade_cloud")
     assert lib.launches == {k: int(k in ran) for k in cuda_lib.KERNELS}
 
 
@@ -237,6 +252,14 @@ def test_scene_consts_fold_like_the_jax_package():
         assert c.inside_r2 == f32((eh * 0.5) * (eh * 0.5))
         assert c.escape_r2 == f32(scene.escape_radius ** 2)
         assert c.step_size == f32(scene.step_size_m)
+        # the adaptive step sizes and h / 6: float32 products and quotients,
+        # as render/march.adaptive_h and physics/integrators.rk4_step make them
+        r2 = torch.tensor([1.0, 400.0, 400.0, 400.0])  # near the hole, then not
+        zd = torch.tensor([False, True, False, False])
+        zc = torch.tensor([False, False, True, False])
+        h = adaptive_h(scene, r2, zd, zc, torch.ones(4, dtype=torch.bool))
+        assert [c.h_near, c.h_disk, c.h_cloud, c.h_far] == h.tolist()
+        assert [c.h6_near, c.h6_disk, c.h6_cloud, c.h6_far] == fdiv(h, 6.0).tolist()
         assert (c.disk_k2, c.disk_rlo2, c.disk_rhi2) == tuple(map(f32, disk_probe_bounds(scene)))
         assert (c.cloud_k2, c.cloud_rlo2, c.cloud_rhi2) == tuple(
             map(f32, cloud_probe_bounds(scene)))
