@@ -8,16 +8,22 @@ script exits non-zero without the final result line:
 
   1. device: torch's device name and `nvidia-smi` name + power limit;
   2. build: nvcc builds csrc/*.cu (record, replay, sky, march), one process
-     per source started together, for sm_90a;
+     per source started together, for sm_90a; each kernel's ptxas line
+     (the fused march kernels in their four (has_spin, has_mass_pos)
+     instances), registers and resident warps an SM by the occupancy API,
+     the march's launch geometry, and from `cuobjdump -sass` the march
+     loop's instructions: those a vacuum step issues, its fp32 ones,
+     branches and reads of the scene flags;
   3. kernels vs plain PyTorch on the card: record at 192x108 with 2000
      steps (hit mismatch < 1e-3, sky index equal where hit agrees), replay's
      three passes on that record (rtol 2e-6 / atol 5e-7; bitwise
      expected), sky on random and smooth
      directions with chromatic aberration on and off (bitwise where
-     unmasked), and the three fused march kernels (march_sky, march_camera,
+     unmasked), the three fused march kernels (march_sky, march_camera,
      march_planes) at 192x108 with 2000 steps (hit mismatch < 1e-3, (I, T)
      and v or the sky coordinates to rtol 2e-6 / atol 5e-7 where hits
-     agree, sky indices equal);
+     agree, sky indices equal), and the march's tile-key kernel (its
+     launch-order key) within 1 of its plain twin;
   4. the seven golden cases through Renderer(device="cuda"), RMSE < 1e-3
      each against tests/goldens/*.npy (the two vacuum cases run the fused
      march kernel, the rest record/replay/sky), and a no-sky 192x108 frame
@@ -30,9 +36,11 @@ script exits non-zero without the final result line:
      disk, shade cloud, composite) and its step list's size; then the same frame with
      media_pass="inline" (march_sky: latency, throughput, RMSE against the
      compact frame), the no-sky frame (march_camera), march_planes on the
-     headline rays, one plain march at 1080p (the plain time of the three
-     march kernels, with its ray-step counts, which size the bounds, and
-     per-ray step counts, which give the SIMT efficiency of 16x2 and 8x4
+     headline rays, march_sky on the same frame with no medium (the same
+     trajectories: the difference is the inline shading's cost), one plain
+     march at 1080p (the plain time of the three
+     march kernels, with its ray-step and per-ray step and probe counts,
+     which size the bounds and give the SIMT efficiency of 16x2 and 8x4
      warp footprints and of ideal lane refill);
   6. the -fmad=false vs contracted-FMA build A/B on the headline frame
      (informational; a build or launch failure still fails the run);
@@ -44,8 +52,15 @@ script exits non-zero without the final result line:
   8. shards on one card: the 1080p frame on a 4x2 grid of cuda:0, shards
      run one after another — the compact branch (strip-interleaved) and
      the inline branch (march_planes) — each bitwise the single-device
-     frame after `reassemble`, with each shard's ms (and, inline, each
-     shard's march_planes launch by CUDA events).
+     frame after `reassemble`, with each shard's ms; inline, each shard's
+     march_planes launch by CUDA events beside its ray-steps and bound,
+     and one line from per-warp timelines (a measurement build,
+     cuda_lib.kernels(timeline=True)) of the slowest shard's launch and of
+     the full frame's: span, longest warp, the share of SM-time in the last
+     20% with few warps resident, work per SM max over mean;
+  9. the fused march's launch order against row-major, every tile by its
+     key and the true-cost order, on the 8 shard launches and the three
+     full-frame kernels, in turns.
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
@@ -56,8 +71,10 @@ and what bounds it), the nvidia-smi line, and last {"ok": true,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import time
 
@@ -152,15 +169,16 @@ def bound(ops: float, nbytes: float):
 class StepCounter:
     """Counts, on the card and without host syncs, what a plain march
     (render/march.march) does: ray-steps (rays active when a step starts),
-    steps whose disk or cloud probe is True, and each ray's steps
-    (`per_ray`, in pixel order). It wraps render/march's march_step,
-    _media_contribution and _scatter (which march calls after every chunk
-    of steps with the working set's pixel ids) while it is entered."""
+    steps whose disk or cloud probe is True, and each ray's steps, disk-
+    probe and cloud-probe steps (`per_ray` [3, rays], in pixel order). It
+    wraps render/march's march_step, _media_contribution and _scatter
+    (which march calls after every chunk of steps with the working set's
+    pixel ids) while it is entered."""
 
     def __init__(self, device):
         self.n = torch.zeros(3, dtype=torch.int64, device=device)
         self.per_ray = None
-        self._chunk = None  # steps of each working-set ray since the last _scatter
+        self._chunk = None  # [3, working set] counts since the last _scatter
 
     def __enter__(self):
         from relativisticraytracer_tpu_torch.render import march as rm
@@ -171,14 +189,16 @@ class StepCounter:
         def counted_step(scene, st, time, media_hook=None):
             self.n[0] += st.active.sum()
             if self._chunk is None:
-                self._chunk = torch.zeros_like(st.active, dtype=torch.int64)
-            self._chunk += st.active
+                self._chunk = torch.zeros((3,) + tuple(st.active.shape), dtype=torch.int64,
+                                          device=st.active.device)
+            self._chunk[0] += st.active
             return step(scene, st, time, media_hook)
 
         def counted_scatter(full, ids, part):
             if self.per_ray is None:
-                self.per_ray = torch.zeros_like(full.active, dtype=torch.int64)
-            self.per_ray.index_add_(0, ids, self._chunk)
+                self.per_ray = torch.zeros((3,) + tuple(full.active.shape), dtype=torch.int64,
+                                           device=full.active.device)
+            self.per_ray.index_add_(1, ids, self._chunk)
             self._chunk = None
             return scatter(full, ids, part)
 
@@ -186,6 +206,7 @@ class StepCounter:
             for k, probe in ((1, probe_disk), (2, probe_cloud)):
                 if probe is not None:
                     self.n[k] += probe.sum()
+                    self._chunk[k] += probe
             return media(*args, probe_disk=probe_disk, probe_cloud=probe_cloud)
 
         rm.march_step, rm._media_contribution = counted_step, counted_media
@@ -228,6 +249,207 @@ def refill_efficiency(steps: np.ndarray, lanes: int) -> float:
     return float(steps.sum() / (32.0 * warp_end.sum()))
 
 
+def sass_functions(text: str):
+    """{function name: ([(address, instruction)], {label: address})} of
+    `cuobjdump -sass` output."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur[1][m.group(1)] = len(cur[0])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            cur[0].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_loop_stats(instrs, labels, flag_offsets):
+    """The longest loop of a kernel's SASS (the march loop): its
+    instructions; the largest forward branch inside it (the shading block
+    a vacuum step skips); the instructions a vacuum step issues (loop less
+    that block), of which fp32 (F*, MUFU), branches, and reads of the
+    scene's flag constants (c[0x0][offset] for `flag_offsets`)."""
+    index = {a: k for k, (a, _) in enumerate(instrs)}
+
+    def target(ins):
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", ins)
+        if not m:
+            return None
+        return labels.get(m.group(1)) if m.group(1) else index.get(int(m.group(2), 16))
+
+    branches = [(k, target(ins)) for k, (_, ins) in enumerate(instrs)]
+    branches = [(k, t) for k, t in branches if t is not None]
+    loops = [(t, k) for k, t in branches if t <= k]
+    if not loops:
+        return None
+    lo, hi = max(loops, key=lambda l: l[1] - l[0])
+    skips = [(k, t) for k, t in branches if lo <= k < t <= hi]
+    s0, s1 = max(skips, key=lambda b: b[1] - b[0], default=(hi, hi))
+    vac = [instrs[k][1] for k in range(lo, hi + 1) if not s0 < k < s1]
+    ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for ins in vac]
+    flags = [ins for ins in vac if any(f"c[0x0][{hex(o)}]" in ins for o in flag_offsets)]
+    return dict(loop=hi - lo + 1, shading_block=s1 - s0 - 1, vacuum=len(vac),
+                fp32=sum(o.startswith(("F", "MUFU")) for o in ops),
+                branches=sum(o.startswith("BRA") for o in ops), flag_reads=len(flags))
+
+
+def timeline_summary(tl: np.ndarray, n_sms: int, full_warps: int) -> str:
+    """One line from a march launch's per-warp timeline (rows of SM, start
+    ns, end ns): its span; the share of SM-time in its last 20% with fewer
+    than full/2 and full/4 warps resident; busy warp-time per SM, max over
+    mean; how long the SMs took to go idle, from the first to the last;
+    the longest warp's own time."""
+    sm, start, end = tl[:, 0], tl[:, 1].astype(np.float64), tl[:, 2].astype(np.float64)
+    t0, t1 = start.min(), end.max()
+    taus = np.linspace(t0 + 0.8 * (t1 - t0), t1, 2000, endpoint=False)
+    low = {full_warps // 2: 0, full_warps // 4: 0}
+    busy, last = np.zeros(n_sms), np.full(n_sms, t0)
+    for s in range(n_sms):
+        m = sm == s
+        if not m.any():
+            for n in low:
+                low[n] += len(taus)
+            continue
+        busy[s] = (end[m] - start[m]).sum()
+        last[s] = end[m].max()
+        resident = (np.searchsorted(np.sort(start[m]), taus, "right")
+                    - np.searchsorted(np.sort(end[m]), taus, "right"))
+        for n in low:
+            low[n] += int((resident < n).sum())
+    share = ", ".join(f"< {n} warps {c / (n_sms * len(taus)):.3f}" for n, c in low.items())
+    used = int((np.bincount(sm.astype(np.int64), minlength=n_sms) > 0).sum())
+    return (f"span {(t1 - t0) / 1e6:.3f} ms, {len(tl)} warps on {used} SMs, longest warp "
+            f"{(end - start).max() / 1e6:.3f} ms; last 20%: SM-time with {share}; busy "
+            f"warp-time per SM max/mean "
+            f"{busy.max() / busy.mean():.3f}; SMs went idle over the last "
+            f"{(last.max() - last.min()) / 1e6:.3f} ms")
+
+
+def shard_march_ms(lib, fn, hcam, eff, sky, reps: int):
+    """Mean ms of each march_planes launch of the sharded frame `fn`, in
+    shard order, by CUDA events around the wrapper (its order-building
+    step included) over `reps` frames."""
+    march_planes, events = lib.march_planes, []
+
+    def timed_march_planes(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        march_planes(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+
+    lib.march_planes = timed_march_planes
+    try:
+        for _ in range(reps):
+            fn(hcam, eff, 1.0, sky)
+        torch.cuda.synchronize()
+    finally:
+        del lib.march_planes
+    per = np.array([a.elapsed_time(b) for a, b in events]).reshape(reps, -1)
+    return per.mean(axis=0).tolist()
+
+
+def march_shard(lib, scene, origin, direction, k, ny, nx, max_steps, dev):
+    """march_planes on shard k (row-major over the ny x nx grid) of the
+    frame's ray planes, as the inline shard renderer cuts them."""
+    from relativisticraytracer_tpu_torch.ops import pallas_march as pm
+    from relativisticraytracer_tpu_torch.core.vecmath import Vec3
+
+    h, w = origin.x.shape
+    i, j = divmod(k, nx)
+    th, tw = h // ny, w // nx
+
+    def cut(a):
+        return a[i * th:(i + 1) * th, j * tw:(j + 1) * tw].contiguous()
+
+    return pm._march_planes_cuda(scene, Vec3(*map(cut, origin)), Vec3(*map(cut, direction)),
+                                 1.0, max_steps, lib)
+
+
+def order_ab(lib, scene, hscal, ho, hd, head_sky, per_ray_all, steps_h, dev):
+    """Phase 9: the fused march's launch order against others
+    — row-major, every tile by its key (longest first), and the tiles by
+    their true cost from the plain march's counts — on the 8 inline shard
+    launches and the three full-frame kernels, in turns, each order's
+    outputs bitwise the kept order's. It swaps lib.march_order, as phase 8
+    swaps lib.march_planes."""
+    from relativisticraytracer_tpu_torch.core.vecmath import Vec3
+    from relativisticraytracer_tpu_torch.ops import cuda_lib
+    from relativisticraytracer_tpu_torch.ops import pallas_march as pm
+
+    hh, hw = per_ray_all.shape[1:]
+    ny, nx = 4, 2
+    sth, stw = hh // ny, hw // nx
+    cost = (per_ray_all[0] * VAC_OPS + per_ray_all[1] * DISK_OPS
+            + per_ray_all[2] * CLOUD_OPS) / VAC_OPS
+    launches = []
+    for k in range(ny * nx):
+        i, j = divmod(k, nx)
+
+        def cut(a, i=i, j=j):
+            return a[i * sth:(i + 1) * sth, j * stw:(j + 1) * stw]
+
+        launches.append((f"shard{k}", cut(cost), lambda o=Vec3(*(cut(a).contiguous() for a in ho)),
+                         d=Vec3(*(cut(a).contiguous() for a in hd)):
+                         pm._march_planes_cuda(scene, o, d, 1.0, steps_h, lib)))
+    launches += [
+        ("frame_sky", cost, lambda: pm._march_camera_sky_cuda(
+            scene, hscal, hw, hh, steps_h, *head_sky.shape, dev, lib)),
+        ("frame_camera", cost, lambda: pm._march_camera_cuda(scene, hscal, hw, hh, steps_h,
+                                                             dev, lib)),
+        ("frame_planes", cost, lambda: pm._march_planes_cuda(scene, ho, hd, 1.0, steps_h, lib)),
+    ]
+
+    def true_cost_order(c):
+        h, w = c.shape
+        x, y, inside = cuda_lib.tile_map(w, h)
+        per = np.where(inside, c[np.minimum(y, h - 1), np.minimum(x, w - 1)], 0).max(axis=1)
+        return torch.as_tensor(np.argsort(-per, kind="stable").astype(np.int32), device=dev)
+
+    def flat(out):
+        return torch.cat([t.reshape(-1).float() for t in list(out[0]) + [out[1]]])
+
+    orders = {
+        "kept (cost >= 1.5 x the cheapest first, then row-major)": None,
+        "row-major": lambda consts, cam, rays, w, h, *rest: torch.arange(
+            cuda_lib.tile_count(w, h), dtype=torch.int32, device=dev),
+        "every tile by its key, longest first": lambda *a: torch.argsort(
+            lib.tile_keys(*a), descending=True, stable=True).to(torch.int32),
+        "true cost (plain march counts), longest first": "true",
+    }
+    ref = {name: flat(run()) for name, _, run in launches}
+    res = {o: {} for o in orders}
+    try:
+        for rep in range(2):  # in turns: A B C D, A B C D
+            for oname, rule in orders.items():
+                for name, c, run in launches:
+                    if rule == "true":
+                        order = true_cost_order(c)
+                        lib.march_order = lambda *a, order=order: order
+                    elif rule is not None:
+                        lib.march_order = rule
+                    res[oname].setdefault(name, []).append(event_ms(run, reps=3))
+                    if rep == 0 and not torch.equal(flat(run()), ref[name]):
+                        raise AssertionError(f"order {oname} changed the {name} outputs")
+                    lib.__dict__.pop("march_order", None)
+    finally:
+        lib.__dict__.pop("march_order", None)
+    for oname, r in res.items():
+        ms = {name: float(np.mean(v)) for name, v in r.items()}
+        sh = [ms[f"shard{k}"] for k in range(ny * nx)]
+        print(f"phase 9 order {oname}: shards {[round(x, 3) for x in sh]} ms (sum {sum(sh):.3f}, "
+              f"max {max(sh):.3f}); full frame sky {ms['frame_sky']:.3f}, camera "
+              f"{ms['frame_camera']:.3f}, planes {ms['frame_planes']:.3f} ms (mean of 2 turns); "
+              f"outputs bitwise the kept order's", flush=True)
+
+
 def trace_frame(render, label: str):
     """One warm call of `render` under torch.profiler: (a summary line of
     device time by kernel and device busy time against wall time, the
@@ -258,7 +480,7 @@ def trace_frame(render, label: str):
     for s, e, name in spans:
         busy_us += max(0.0, e - max(s, end_us))  # union of the device intervals
         end_us = max(end_us, e)
-        symbol = name.split("(")[0].split(" ")[-1]
+        symbol = re.sub(r"<.*>", "", name.split("(")[0]).split(" ")[-1]
         key = next((k for k, v in KERNELS.items() if symbol in v[2]), "other: " + name[:60])
         by_name[key] = by_name.get(key, 0.0) + (e - s) / 1000.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -326,10 +548,36 @@ def main() -> None:
     kernel = "?"
     for line in lib.build_log.splitlines():
         if "Compiling entry function" in line:
-            kernel = max((sym for _, _, syms in KERNELS.values() for sym in syms
-                          if sym in line), key=len, default=line.strip())
+            m = re.search(r"function '_Z(\d+)", line)  # the mangled name's identifier
+            kernel = line[m.end():m.end() + int(m.group(1))] if m else line.strip()
+            flags = re.search(r"ILb(\d)ELb(\d)E", line)
+            if flags:  # the fused march's instance for (has_spin, has_mass_pos)
+                kernel += f"<spin {flags.group(1)}, mass_pos {flags.group(2)}>"
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("record", "march_sky", "march_camera", "march_planes"):
+        threads = 256 if name == "record" else 32
+        a = lib.attrs(name, threads, dev)
+        print(f"  occupancy {name}: {a['regs']} registers, {a['local_bytes']} B local a "
+              f"thread; {a['blocks_per_sm']} blocks of {threads} threads an SM = "
+              f"{a['blocks_per_sm'] * threads // 32} warps")
+    print(f"  march launch geometry: {cuda_lib.TILE_W}x{cuda_lib.TILE_H} pixel tiles, one warp "
+          f"a block, expensive tiles first; tiles (= blocks): 1920x1080 "
+          f"{cuda_lib.tile_count(1920, 1080)}, a 270x960 shard {cuda_lib.tile_count(960, 270)}, "
+          f"192x108 {cuda_lib.tile_count(192, 108)}")
+    cuobjdump = pathlib.Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    # sm_90 kernels read their parameters (SceneConsts first) from c[0x0][0x210] on
+    flag_offsets = [0x210 + getattr(cuda_lib.SceneConsts, f).offset
+                    for f in ("enable_disk", "enable_clouds", "has_spin", "has_mass_pos")]
+    for fname, (instrs, labels) in sass_functions(sass).items():
+        sym = next((k for k in ("record_kernel", "march_camera_sky_kernel", "march_camera_kernel",
+                                "march_planes_kernel") if k in fname), None)
+        if sym is not None and (sym == "record_kernel" or "ILb0ELb0E" in fname):
+            print(f"  SASS {sym}: {len(instrs)} instructions; march loop "
+                  f"{sass_loop_stats(instrs, labels, flag_offsets)}")
     errs = {}
 
     # ---- phase 3: kernels vs plain versions on the card
@@ -440,6 +688,25 @@ def main() -> None:
         print(f"phase 3 {name} {w}x{h} {steps} steps: hit mismatch {mis:.2e}, max |d| where "
               f"hits agree {errs[name]:.3g} (rtol 2e-6, atol 5e-7)"
               + (", sky indices equal" if with_sky else ""), flush=True)
+
+    # the march's tile-key kernel (its order key) against its plain twin
+    consts = cuda_lib.scene_consts(scene)
+    stream = cuda_lib.current_stream(dev)
+    rays = torch.stack(list(o) + list(d))
+    kp = cuda_lib.tile_keys_plain(consts, o, d, steps)
+    key_err = 0
+    for src, kk in (("camera", lib.tile_keys(consts, cuda_lib.cam_scalars(scal), None, w, h,
+                                             steps, stream)),
+                    ("planes", lib.tile_keys(consts, None, rays, w, h, steps, stream))):
+        key_err = max(key_err, int((kk - kp).abs().max()))
+    order = lib.march_order(consts, None, rays, w, h, steps, stream)
+    perm = bool(torch.equal(torch.sort(order.long()).values,
+                            torch.arange(cuda_lib.tile_count(w, h), device=dev)))
+    print(f"phase 3 march tile keys {w}x{h}: max |d key| vs plain {key_err} steps (camera and "
+          f"planes; at most 1), order a permutation of the tiles {perm}; keys "
+          f"{int(kp.min())}-{int(kp.max())}", flush=True)
+    if not (key_err <= 1 and perm):
+        raise AssertionError("march tile keys disagree with their plain twin")
 
     # ---- phase 4: the golden cases through the renderer on the card
     sky_small_rgba = np.load(STARFIELD)
@@ -642,6 +909,11 @@ def main() -> None:
         scene, hscal, hw, hh, steps_h, dev, lib))
     ms["march_planes"] = event_ms(lambda: pm._march_planes_cuda(scene, ho, hd, 1.0, steps_h,
                                                                 lib))
+    # the same trajectories with no medium (the step sizes follow the zones
+    # alone): the difference is what the inline shading costs
+    vacuum = dataclasses.replace(scene, enable_disk=False, enable_clouds=False)
+    ms_vacuum = event_ms(lambda: pm._march_camera_sky_cuda(
+        vacuum, hscal, hw, hh, steps_h, *head_sky.shape, dev, lib))
 
     # one plain march (march_sky's plain version) on the headline rays: the
     # plain time of the three march kernels, and this frame's ray-step
@@ -650,20 +922,24 @@ def main() -> None:
         p4, plain_march_ms = sync_ms(lambda: pm._march_camera_sky_plain(
             scene, hscal, hw, hh, steps_h, *head_sky.shape, dev))
     n_steps, n_disk, n_cloud = counter.counts()
-    per_ray = counter.per_ray.reshape(hh, hw).cpu().numpy()
+    per_ray_all = counter.per_ray.reshape(3, hh, hw).cpu().numpy()
+    per_ray = per_ray_all[0]
     # a persistent grid of the record kernel's residency: 4 blocks of 256
     # threads an SM at its 56 registers
     lanes = torch.cuda.get_device_properties(dev).multi_processor_count * 1024
     simt = {"16x2": simt_efficiency(per_ray, 16, 2), "8x4": simt_efficiency(per_ray, 8, 4),
             f"ideal refill ({lanes} lanes)": refill_efficiency(per_ray, lanes)}
-    if int(per_ray.sum()) != n_steps:
-        raise AssertionError(f"per-ray steps {int(per_ray.sum())} != ray-steps {n_steps}")
+    if per_ray_all.sum(axis=(1, 2)).tolist() != [n_steps, n_disk, n_cloud]:
+        raise AssertionError(f"per-ray counts {per_ray_all.sum(axis=(1, 2))} != "
+                             f"{[n_steps, n_disk, n_cloud]}")
     errs["march_sky"] = max(errs["march_sky"], march_errs(k4, p4, True)[1])
     for name in ("march_sky", "march_camera", "march_planes"):
         plain_ms[name] = plain_march_ms
     print(f"phase 5 fused march at {hw}x{hh}: march_sky {ms['march_sky']:.3f} ms, "
           f"march_camera {ms['march_camera']:.3f} ms, march_planes {ms['march_planes']:.3f} ms "
-          f"(CUDA events); (I, T) of the three equal {same_it}; plain march "
+          f"(CUDA events); march_sky with no medium (the same trajectories) {ms_vacuum:.3f} "
+          f"ms, so the inline shading costs {ms['march_sky'] - ms_vacuum:.3f} ms; (I, T) of the "
+          f"three equal {same_it}; plain march "
           f"{plain_march_ms:.1f} ms with {n_steps} ray-steps "
           f"({n_steps / (hw * hh):.1f} per ray), {n_disk} disk-probe and {n_cloud} "
           f"cloud-probe steps; record SIMT efficiency (steps / 32 x warp's longest): "
@@ -724,22 +1000,7 @@ def main() -> None:
         equal = np.array_equal(tiled, whole_np)
         kernel_ms = ""
         if label == "inline":  # each shard's march_planes launch, by CUDA events
-            march_planes, events = lib.march_planes, []
-
-            def timed_march_planes(*args, **kwargs):
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-                march_planes(*args, **kwargs)
-                ev[1].record()
-                events.append(ev)
-
-            lib.march_planes = timed_march_planes
-            try:
-                fn(hcam, eff, 1.0, head_sky)
-                torch.cuda.synchronize()
-            finally:
-                del lib.march_planes
-            per_launch = [a.elapsed_time(b) for a, b in events]
+            per_launch = shard_march_ms(lib, fn, hcam, eff, head_sky, reps=3)
             kernel_ms = (f"; march_planes per launch {[round(x, 3) for x in per_launch]} ms "
                          f"(sum {sum(per_launch):.3f})")
         print(f"phase 8 shards 4x2 on one card ({label}; shards run one after another on "
@@ -750,6 +1011,52 @@ def main() -> None:
             raise AssertionError(f"sharded frame ({label}) failed: {shard_launches}")
         if label == "inline":
             launches["march_planes"] = shard_launches["march_planes"]
+
+    # each inline shard's ray-steps and bound beside its march_planes launch
+    ny, nx = mesh.shape
+    sth, stw = hh // ny, hw // nx
+    shard_bounds, shard_steps = [], []
+    for k in range(ny * nx):
+        i, j = divmod(k, nx)
+        c = per_ray_all[:, i * sth:(i + 1) * sth, j * stw:(j + 1) * stw].sum(axis=(1, 2))
+        shard_steps.append(int(c[0]))
+        shard_bounds.append(bound(int(c[0]) * VAC_OPS + int(c[1]) * DISK_OPS
+                                  + int(c[2]) * CLOUD_OPS, sth * stw * (24 + 32))[0])
+    for k, (st, b_ms, l_ms) in enumerate(zip(shard_steps, shard_bounds, per_launch)):
+        print(f"  shard {divmod(k, nx)}: {st} ray-steps ({st / n_steps:.4f} of the frame's), "
+              f"bound {b_ms:.3f} ms, march_planes {l_ms:.3f} ms ({b_ms / l_ms:.3f} of bound)")
+    ms_full_planes = ms["march_planes"]
+    ms["march_planes"] = sum(per_launch)
+    bounds["march_planes"] = (sum(shard_bounds), "operations")
+    print(f"  march_planes: 8 shard launches {ms['march_planes']:.3f} ms against their summed "
+          f"bound {sum(shard_bounds):.3f} ms; one full-frame launch {ms_full_planes:.3f} ms",
+          flush=True)
+
+    # per-warp timelines from the measurement build: the slowest shard's
+    # launch and the full frame's
+    lib_tl = cuda_lib.kernels(timeline=True)
+    full_warps = lib.attrs("march_planes", 32, dev)["blocks_per_sm"]
+    tl_buf = torch.zeros((cuda_lib.tile_count(hw, hh), 3), dtype=torch.int64, device=dev)
+    lib_tl.set_timeline(tl_buf)
+    slow = int(np.argmax(per_launch))
+    tl_lines = []
+    for what, run in (
+        (f"slowest shard {divmod(slow, nx)}", lambda: march_shard(lib_tl, scene, ho, hd, slow, ny,
+                                                                   nx, steps_h, dev)),
+        ("full frame march_sky", lambda: pm._march_camera_sky_cuda(
+            scene, hscal, hw, hh, steps_h, *head_sky.shape, dev, lib_tl)),
+    ):
+        run()  # warm-up
+        tl_buf.zero_()
+        run()
+        torch.cuda.synchronize()
+        tl = tl_buf.cpu().numpy()
+        tl = tl[tl[:, 2] > 0]
+        tl_lines.append(f"{what}: {timeline_summary(tl, n_sms, full_warps)}")
+    print("phase 8 march timeline (measurement build, per warp): " + "; ".join(tl_lines),
+          flush=True)
+
+    order_ab(lib, scene, hscal, ho, hd, head_sky, per_ray_all, steps_h, dev)
 
     if opts.trace:
         line, syncs = trace_frame(lambda: renderer.render(hcam, eff, 1.0), "headline")

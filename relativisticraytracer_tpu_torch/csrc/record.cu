@@ -109,6 +109,18 @@ extern "C" int rrt_scene_consts_size() { return (int)sizeof(SceneConsts); }
 
 extern "C" int rrt_ray_grid_size() { return (int)sizeof(RayGrid); }
 
+// out = {registers a thread, local (spill) bytes a thread, resident blocks
+// an SM at `threads` a block} of the record kernel on the current device.
+extern "C" int rrt_record_attrs(int threads, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, (const void*)record_kernel);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], (const void*)record_kernel,
+                                                              threads, 0);
+}
+
 // `rec` must hold zeros (the wrapper's memset).
 extern "C" int rrt_record(const SceneConsts* c, const CamScalars* cam, const RayGrid* g,
                           int width, int height, int max_steps, int slots, int sky_h, int sky_w,

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from relativisticraytracer_tpu_torch.config import SceneConfig
+from relativisticraytracer_tpu_torch.core.vecmath import fdiv
 from relativisticraytracer_tpu_torch.media.densities import (
     cloud_probe_bounds,
     disk_probe_bounds,
@@ -200,8 +201,115 @@ def _nvcc() -> str:
     return found
 
 
-def _flags(fmad: bool):
-    return ARCH_FLAGS + BASE_FLAGS + [f"-fmad={'true' if fmad else 'false'}"]
+def _flags(fmad: bool, timeline: bool):
+    return (ARCH_FLAGS + BASE_FLAGS + [f"-fmad={'true' if fmad else 'false'}"]
+            + (["-DRRT_TIMELINE"] if timeline else []))
+
+
+# The fused march's pixel tiles (csrc/march.cu): one warp renders a
+# TILE_W x TILE_H patch.
+TILE_W, TILE_H = 8, 4
+
+
+def tile_count(width: int, height: int) -> int:
+    """Tiles of a (height, width) march launch: csrc/march.cu::tiles_of."""
+    return -(-width // TILE_W) * -(-height // TILE_H)
+
+
+def tile_map(width: int, height: int):
+    """Plain twin of csrc/march.cu::tile_pixel: (x, y, inside), each
+    [tiles, 32] — lane l of tile t renders local pixel (x[t, l], y[t, l])
+    when inside[t, l]; lanes past the right or bottom edge idle."""
+    tiles_x = -(-width // TILE_W)
+    t = np.arange(tile_count(width, height))[:, None]
+    lane = np.arange(32)[None, :]
+    x = (t % tiles_x) * TILE_W + lane % TILE_W
+    y = (t // tiles_x) * TILE_H + lane // TILE_W
+    return x, y, (x < width) & (y < height)
+
+
+def straight_line_cost(consts: "SceneConsts", origin, direction, max_steps: int):
+    """Plain twin of csrc/march.cu::straight_line_cost on tensors (the same
+    operations in the same order): each ray's cost in vacuum steps along
+    its straight line — steps near the hole at h_near, in the disk zone's
+    slab at h_disk, else h_far, at most max_steps; plus the media probes'
+    slabs where it crosses y = 0, weighted by their extra work — int32. An
+    order key for the march's tiles, never part of a ray's values."""
+    dx, dy, dz = direction
+    ox, oy, oz = origin
+    if consts.has_mass_pos:
+        ox, oy, oz = ox - consts.mass_pos[0], oy - consts.mass_pos[1], oz - consts.mass_pos[2]
+    dd = dx * dx + dy * dy + dz * dz
+    inv = fdiv(1.0, torch.sqrt(dd))
+    ux, uy, uz = dx * inv, dy * inv, dz * inv
+    tca = -(ox * ux + oy * uy + oz * uz)
+    b2 = torch.clamp((ox * ox + oy * oy + oz * oz) - tca * tca, min=0.0)
+    eh = consts.eh
+    bc2 = float(np.float32(np.float32(6.75) * np.float32(eh)) * np.float32(eh))
+    escape = tca + torch.sqrt(torch.clamp(consts.escape_r2 - b2, min=0.0))
+    t_end = torch.clamp(torch.where(b2 < bc2, tca, escape), min=0.0)
+
+    def chord(r2):
+        half = torch.sqrt(torch.clamp(r2 - b2, min=0.0))
+        inside = b2 < r2
+        return torch.where(inside, tca - half, 0.0), torch.where(inside, tca + half, 0.0)
+
+    def clipped(t0, t1):
+        return torch.clamp(torch.minimum(t1, t_end) - torch.clamp(t0, min=0.0), min=0.0)
+
+    n0, n1 = chord(324.0)
+    z0, z1 = chord(consts.disk_zone_r2)
+    zy = consts.disk_zone_y
+    slanted = uy.abs() > float(np.float32(1e-6))
+    safe_uy = torch.where(slanted, uy, 1.0)
+    a, b = fdiv(-zy - oy, safe_uy), fdiv(zy - oy, safe_uy)
+    in_slab = oy.abs() < zy
+    s0 = torch.where(slanted, torch.minimum(a, b), torch.where(in_slab, -3.0e38, 0.0))
+    s1 = torch.where(slanted, torch.maximum(a, b), torch.where(in_slab, 3.0e38, 0.0))
+    d0, d1 = torch.maximum(z0, s0), torch.minimum(z1, s1)
+    l_near = clipped(n0, n1)
+    l_disk = clipped(d0, d1) - clipped(torch.maximum(d0, n0), torch.minimum(d1, n1))
+    l_far = torch.clamp(t_end - l_near - l_disk, min=0.0)
+    est = fdiv(l_far, consts.h_far) + fdiv(l_disk, consts.h_disk) + fdiv(l_near, consts.h_near)
+    est = torch.where(est < max_steps, est, float(max_steps))
+    # the media probes' slabs where the line crosses y = 0, in vacuum-step
+    # units: a disk-probe step costs ~6 vacuum steps, a cloud-probe step ~21
+    tp = fdiv(-oy, safe_uy)
+    crossing = slanted & (tp > 0.0) & (tp < t_end)
+    px, pz = ox + tp * ux, oz + tp * uz
+    rc2 = torch.clamp(px * px + pz * pz, min=float(np.float32(1e-6)))
+    h_at = torch.where(rc2 < 324.0, consts.h_near, consts.h_disk)
+    per_unit = fdiv(2.0, uy.abs() * h_at)
+    for enabled, k2, lo2, hi2, zone, root, weight in (
+            (consts.enable_disk, consts.disk_k2, consts.disk_rlo2, consts.disk_rhi2,
+             consts.disk_zone_y, lambda q: torch.sqrt(torch.sqrt(q)), 6.0),
+            (consts.enable_clouds, consts.cloud_k2, consts.cloud_rlo2, consts.cloud_rhi2,
+             consts.cloud_zone_y, lambda q: torch.pow(q, float(np.float32(0.1))), 21.0)):
+        if enabled:
+            slab = torch.clamp(root(fdiv(k2, rc2)), max=zone)
+            est = torch.where(crossing & (rc2 >= lo2) & (rc2 <= hi2),
+                              est + weight * per_unit * slab, est)
+    est = torch.where(dd > 0.0, est, float(max_steps))
+    return torch.clamp(est, max=1.0e9).trunc().to(torch.int32)
+
+
+def tile_keys_plain(consts: "SceneConsts", origin, direction, max_steps: int) -> torch.Tensor:
+    """Plain twin of csrc/march.cu::tile_keys_kernel: per tile the largest
+    straight_line_cost of its rays (0 for idle lanes)."""
+    height, width = origin[0].shape
+    cost = straight_line_cost(consts, origin, direction, max_steps)
+    x, y, inside = (torch.as_tensor(a, device=cost.device) for a in tile_map(width, height))
+    per_lane = torch.where(inside, cost[y.clamp(max=height - 1), x.clamp(max=width - 1)], 0)
+    return per_lane.amax(dim=1)
+
+
+def order_from_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The march's launch order from its tile keys: the tiles costing at
+    least 1.5x the launch's cheapest first, then the rest, each class in
+    row-major order (a stable sort of the class), int32. On the device,
+    with no host sync."""
+    expensive = keys >= keys.min() * 3 // 2
+    return torch.argsort(expensive.to(torch.int32), descending=True, stable=True).to(torch.int32)
 
 
 # The replay's passes (csrc/replay.cu): march, disk and cloud shading,
@@ -216,13 +324,14 @@ class KernelLibrary:
     `launches[name]` counts the launches of each kernel; the wrapper adds
     one right where it launches, and nowhere else."""
 
-    def __init__(self, fmad: bool = False):
+    def __init__(self, fmad: bool = False, timeline: bool = False):
         self.fmad = fmad
+        self.timeline = timeline
         self.build_seconds = 0.0
         self.build_log = ""
         self.launches = dict.fromkeys(KERNELS, 0)
-        path = self._build()
-        self._lib = ctypes.CDLL(str(path))
+        self.path = self._build()
+        self._lib = ctypes.CDLL(str(self.path))
         self._declare()
         for name, struct in (("scene_consts", SceneConsts), ("ray_grid", RayGrid)):
             size = getattr(self._lib, f"rrt_{name}_size")()
@@ -232,7 +341,7 @@ class KernelLibrary:
                     f"{ctypes.sizeof(struct)} B")
 
     def _build(self) -> Path:
-        flags = _flags(self.fmad)
+        flags = _flags(self.fmad, self.timeline)
         h = hashlib.sha256(" ".join(flags).encode())
         for name in SOURCES + HEADERS:
             h.update(name.encode())
@@ -289,10 +398,15 @@ class KernelLibrary:
             "replay_shade": [sc, cf, ci, cl] + [vp] * 4,
             "replay_composite": [ci, ci, cl] + [vp] * 6,
             "sky": [ci, ci] + [vp] * 10,
-            "march_sky": [sc, cam] + [ci] * 5 + [vp] * 6,
-            "march_camera": [sc, cam] + [ci] * 3 + [vp] * 5,
-            "march_planes": [sc, cf] + [ci] * 3 + [vp] * 6,
+            "march_sky": [sc, cam] + [ci] * 5 + [vp] * 7,
+            "march_camera": [sc, cam] + [ci] * 3 + [vp] * 6,
+            "march_planes": [sc, cf] + [ci] * 3 + [vp] * 7,
+            "march_tile_keys": [sc, cam] + [ci] * 3 + [vp] * 3,
+            "march_attrs": [sc, ci, ci, vp],
+            "record_attrs": [ci, vp],
         }
+        if self.timeline:
+            argtypes["set_timeline"] = [vp]
         for name, types in argtypes.items():
             fn = getattr(lib, f"rrt_{name}")
             fn.argtypes = types
@@ -391,6 +505,27 @@ class KernelLibrary:
                 q4.data_ptr() if use_q4 else None, bg.data_ptr(), stream)
         self._launched("sky", err)
 
+    def tile_keys(self, consts, cam, rays, width, height, max_steps, stream) -> torch.Tensor:
+        """csrc/march.cu::tile_keys_kernel: each tile's straight-line cost
+        estimate (int32), for rays from the camera (`rays` None) or from
+        the [6, H, W] planes `rays`, on the current device."""
+        device = rays.device if rays is not None else torch.device(
+            "cuda", torch.cuda.current_device())
+        keys = torch.empty(tile_count(width, height), dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            err = self._lib.rrt_march_tile_keys(
+                ctypes.byref(consts), None if cam is None else ctypes.byref(cam), width, height,
+                max_steps, None if rays is None else rays.data_ptr(), keys.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err} launching the march tile-key kernel")
+        return keys
+
+    def march_order(self, consts, cam, rays, width, height, max_steps, stream) -> torch.Tensor:
+        """The fused march's launch order (order_from_keys of tile_keys): a
+        key kernel and a sort on the current device, no host sync."""
+        return order_from_keys(self.tile_keys(consts, cam, rays, width, height, max_steps,
+                                              stream))
+
     def march_sky(self, consts, cam, max_steps, sky_h, sky_w, intensity, trans,
                   idx, fx, fy, stream) -> None:
         shape = tuple(trans.shape)
@@ -401,10 +536,11 @@ class KernelLibrary:
                             (fy, torch.float32, (3,) + shape)])
         height, width = shape
         with torch.cuda.device(trans.device):
+            order = self.march_order(consts, cam, None, width, height, max_steps, stream)
             err = self._lib.rrt_march_sky(
                 ctypes.byref(consts), ctypes.byref(cam), width, height, max_steps,
-                sky_h, sky_w, intensity.data_ptr(), trans.data_ptr(), idx.data_ptr(),
-                fx.data_ptr(), fy.data_ptr(), stream)
+                sky_h, sky_w, order.data_ptr(), intensity.data_ptr(), trans.data_ptr(),
+                idx.data_ptr(), fx.data_ptr(), fy.data_ptr(), stream)
         self._launched("march_sky", err)
 
     def march_camera(self, consts, cam, max_steps, intensity, trans, hit, vel,
@@ -413,10 +549,11 @@ class KernelLibrary:
         check("march_camera", _state_specs(shape, intensity, trans, hit, vel))
         height, width = shape
         with torch.cuda.device(trans.device):
+            order = self.march_order(consts, cam, None, width, height, max_steps, stream)
             err = self._lib.rrt_march_camera(
                 ctypes.byref(consts), ctypes.byref(cam), width, height, max_steps,
-                intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(), vel.data_ptr(),
-                stream)
+                order.data_ptr(), intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(),
+                vel.data_ptr(), stream)
         self._launched("march_camera", err)
 
     def march_planes(self, consts, time, max_steps, rays, intensity, trans, hit, vel,
@@ -426,11 +563,39 @@ class KernelLibrary:
               + _state_specs(shape, intensity, trans, hit, vel))
         height, width = shape
         with torch.cuda.device(trans.device):
+            order = self.march_order(consts, None, rays, width, height, max_steps, stream)
             err = self._lib.rrt_march_planes(
                 ctypes.byref(consts), time, width, height, max_steps, rays.data_ptr(),
-                intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(), vel.data_ptr(),
-                stream)
+                order.data_ptr(), intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(),
+                vel.data_ptr(), stream)
         self._launched("march_planes", err)
+
+    def attrs(self, name: str, threads: int, device) -> Dict[str, int]:
+        """Registers and local (spill) bytes a thread, and resident blocks
+        an SM at `threads` a block, of the record kernel or a fused march
+        kernel ("march_sky", "march_camera", "march_planes" in their
+        instance for SceneConfig()'s flags; "march_tile_keys") on `device`
+        (the CUDA occupancy API)."""
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            if name == "record":
+                err = self._lib.rrt_record_attrs(threads, out)
+            else:
+                which = ("march_sky", "march_camera", "march_planes", "march_tile_keys").index(name)
+                consts = scene_consts(SceneConfig())
+                err = self._lib.rrt_march_attrs(ctypes.byref(consts), which, threads, out)
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err} querying the {name} kernel")
+        return dict(regs=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+    def set_timeline(self, buf: torch.Tensor) -> None:
+        """Timeline build only: the fused march kernels write each warp's
+        (SM, start ns, end ns) to `buf` (int64 [slots, 3]) at its launch
+        slot."""
+        with torch.cuda.device(buf.device):
+            err = self._lib.rrt_set_timeline(buf.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err} setting the march timeline buffer")
 
 
 def _state_specs(shape, intensity, trans, hit, vel):
@@ -440,15 +605,18 @@ def _state_specs(shape, intensity, trans, hit, vel):
             (hit, torch.float32, shape), (vel, torch.float32, (3,) + shape)]
 
 
-_LIBRARIES: Dict[bool, KernelLibrary] = {}
+_LIBRARIES: Dict[tuple, KernelLibrary] = {}
 
 
-def kernels(fmad: bool = False) -> KernelLibrary:
+def kernels(fmad: bool = False, timeline: bool = False) -> KernelLibrary:
     """The kernel library built with the given contraction flag (built and
-    loaded once per process)."""
-    if fmad not in _LIBRARIES:
-        _LIBRARIES[fmad] = KernelLibrary(fmad)
-    return _LIBRARIES[fmad]
+    loaded once per process). `timeline=True` is the measurement build
+    whose fused march kernels record each warp's SM and start and end
+    times (KernelLibrary.set_timeline); the default build has none of it."""
+    key = (fmad, timeline)
+    if key not in _LIBRARIES:
+        _LIBRARIES[key] = KernelLibrary(fmad, timeline)
+    return _LIBRARIES[key]
 
 
 def resolve(lib: Optional[KernelLibrary]) -> KernelLibrary:

@@ -196,6 +196,69 @@ def test_march_kernels_match_plain(cuda, kernel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel,w,h,steps", [
+    ("sky", 67, 131, 2000), ("camera", 67, 131, 2000), ("planes", 67, 131, 2000),
+    ("shard", 960, 270, 400),
+])
+def test_march_kernels_bitwise_at_ragged_shapes(cuda, kernel, w, h, steps):
+    """Kernels 4-6 bitwise their plain versions where no dimension is a
+    multiple of the 8x4 warp tile: 67x131, and shard (1, 0) of a 4x2 grid
+    of the 1920x1080 frame (270 rows) through the plane kernel."""
+    if kernel != "shard":
+        k, p = _march_both(cuda, kernel, w=w, h=h, steps=steps)
+    else:
+        scal = pc.pack_camera_scalars(camera_state_from_pose(*HEAD), CameraEffects(), 10.0)
+        o, d = rays_from_scalars(scal, w, h, cuda, origin=(0.0, 270.0), img_w=1920, img_h=1080)
+        scene = SceneConfig(max_steps=steps)
+        k = pm._march_planes_cuda(scene, o, d, 10.0, steps)
+        p = pm._march_plain(scene, o, d, 10.0, steps)
+    for got, want in zip(_flat(k), _flat(p)):
+        assert torch.equal(got, want)
+
+
+def _flat(out):
+    """A fused march's outputs as a list of tensors (Vec3s unpacked)."""
+    return [t for a in out for t in (list(a) if isinstance(a, Vec3) else [a])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["sky", "camera", "planes"])
+def test_march_back_to_back_launches_agree(cuda, kernel):
+    """Two launches on one stream, each with its own tile order, give the
+    same outputs: nothing carries over from one launch to the next."""
+    lib = cuda_lib.kernels()
+    lib.reset_launches()
+    a, _ = _march_both(cuda, kernel, w=64, h=36, steps=400)
+    b, _ = _march_both(cuda, kernel, w=64, h=36, steps=400)
+    for x, y in zip(_flat(a), _flat(b)):
+        assert torch.equal(x, y)
+    name = {"sky": "march_sky", "camera": "march_camera", "planes": "march_planes"}[kernel]
+    assert lib.launches[name] == 2
+
+
+@pytest.mark.gpu
+def test_march_tile_keys_match_plain(cuda):
+    """The order-key kernel against its plain twin (camera and plane rays;
+    a key may differ by 1 where powf and torch.pow round apart), and the
+    launch order it gives is a permutation of the tiles."""
+    lib = cuda_lib.kernels()
+    scene = SceneConfig()
+    scal = pc.pack_camera_scalars(camera_state_from_pose(*HEAD), CameraEffects(), 1.0)
+    w, h = 67, 131
+    o, d = rays_from_scalars(scal, w, h, cuda)
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(cuda)
+    rays = torch.stack(list(o) + list(d))
+    want = cuda_lib.tile_keys_plain(consts, o, d, 2000)
+    for got in (lib.tile_keys(consts, cuda_lib.cam_scalars(scal), None, w, h, 2000, stream),
+                lib.tile_keys(consts, None, rays, w, h, 2000, stream)):
+        assert int((got - want).abs().max()) <= 1
+    order = lib.march_order(consts, None, rays, w, h, 2000, stream)
+    assert torch.equal(order.cpu(), cuda_lib.order_from_keys(got.cpu()))
+    assert torch.equal(torch.sort(order.long()).values,
+                       torch.arange(cuda_lib.tile_count(w, h), device=cuda))
+
+
+@pytest.mark.gpu
 def test_record_kernel_shard_is_a_crop(cuda):
     """The record kernel with a shard origin and strip maps is bitwise the
     matching rows/columns of the full-frame record."""
