@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's frame paths on one CUDA card.
+"""Drive the PyTorch port's frame paths, tools and host runtime on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -60,11 +60,38 @@ script exits non-zero without the final result line:
      20% with few warps resident, work per SM max over mean;
   9. the fused march's launch order against row-major, every tile by its
      key and the true-cost order, on the 8 shard launches and the three
-     full-frame kernels, in turns.
+     full-frame kernels, in turns;
+ 10. the probe kernels (csrc/probes.cu) at the tools' own shapes:
+     chain_kernel over the ceiling's 4 waves of blocks at 500 iterations
+     against its torch loop (fma, mul and mul_bf16 bitwise, rsqrt and exp
+     rtol 1e-5) and take_along_kernel bitwise torch.gather; then the two
+     tools' own runs (tools/roofline, tools/sky_primitives; their launches
+     are the table's): each op's measured rate beside the spec arithmetic
+     at the card's max SM clock, the SASS class counts of a vacuum step,
+     each frame kernel's measured floor (its steps' hand-counted
+     operations at the measured fp32 rate) with the SASS diagnostic (the
+     built loop's shortest iteration at the measured rates) beside its
+     67e12 bound, take_along's device ms with the L2 cold, byte bound and
+     torch.gather's ms;
+ 11. the host runtime at 1920x1080 (SceneConfig(), 2000 steps, the
+     2048x4096 starfield, default_paths()[0], 24 fps): a 12-frame
+     AnimationJob through the raw sink with the compact and the inline
+     program (frames 0 and 11 bitwise Renderer.render_np; mean_frame_ms
+     beside phase 5; host syncs and the device's idle share from a
+     torch.profiler trace of 4 job frames); the pinned D2H copy; the
+     yuv420p transfer (file size, frame 0 within 1 level of a float64
+     oracle); resume after an interruption at frame 5, devices
+     ["cuda:0", "cuda:0"] and a 4-frame PNG sequence, each byte-identical;
+     the Session at the realtime and native presets with their motion
+     renderers (tick ms still, flying and recording); the terminal
+     preview and PreviewServer's /frame.jpg (where Pillow imports); the
+     CLI's paths, still --preset cinema and anim --preset realtime as
+     subprocesses (wall time; no kernel build).
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
-and what bounds it), the nvidia-smi line, and last {"ok": true,
+and what bounds it, and for the frame kernels the measured floor, what
+sets it and the SASS diagnostic), the nvidia-smi line, and last {"ok": true,
 "device": {...}}. It needs one CUDA card and imports no JAX.
 """
 
@@ -76,6 +103,7 @@ import json
 import pathlib
 import re
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -103,6 +131,12 @@ GOLDEN_CASES = [
      ((0.0, 10.0, -60.0), 0.0, -10.0), 10.0, 2000),
 ]
 
+from relativisticraytracer_tpu_torch.tools.roofline import (  # noqa: E402
+    CLOUD_OPS,
+    DISK_OPS,
+    VAC_OPS,
+)
+
 CSRC = "relativisticraytracer_tpu_torch/csrc/"
 # name: (source, the TPU kernel it replaces, its __global__ symbols)
 KERNELS = {
@@ -118,19 +152,15 @@ KERNELS = {
                      ("march_camera_kernel",)),
     "march_planes": (CSRC + "march.cu", "relativisticraytracer_tpu/ops/pallas_march.py:324",
                      ("march_planes_kernel",)),
+    "chain": (CSRC + "probes.cu", "tools/vpu_roofline.py:97",
+              ("chain_kernel", "chain_bf16_kernel")),
+    "take_along": (CSRC + "probes.cu", "tools/bench_sky_primitives.py:95",
+                   ("take_along_kernel",)),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, HBM.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-# Float operations per ray-step, counted from csrc/march_common.cuh: one
-# per add, multiply, compare, select or math-library call (a powf or expf
-# counts one, so these undercount and the bound stays a lower bound).
-VAC_OPS = 247      # zones, adaptive h, probes, RK4 (4 x geodesic_acc, 31 each), escape
-DISK_OPS = 1475    # disk_block on a disk-probe step: 5-octave fbm (1,320) and the rest
-CLOUD_OPS = 5220   # cloud_block on a cloud-probe step: 7 two-octave fbm + 5 ridge octaves
-
-
 def rmse(a: np.ndarray, b: np.ndarray) -> float:
     d = a[..., :3].astype(np.int64) - b[..., :3].astype(np.int64)
     return float(np.sqrt(np.mean((d / 255.0) ** 2)))
@@ -247,57 +277,6 @@ def refill_efficiency(steps: np.ndarray, lanes: int) -> float:
         heapq.heappush(free, (t + s, lane))
     warp_end = end.reshape(-1, 32).max(axis=1)
     return float(steps.sum() / (32.0 * warp_end.sum()))
-
-
-def sass_functions(text: str):
-    """{function name: ([(address, instruction)], {label: address})} of
-    `cuobjdump -sass` output."""
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(m.group(1), ([], {}))
-            continue
-        if cur is None:
-            continue
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            cur[1][m.group(1)] = len(cur[0])
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m:
-            cur[0].append((int(m.group(1), 16), m.group(2)))
-    return funcs
-
-
-def sass_loop_stats(instrs, labels, flag_offsets):
-    """The longest loop of a kernel's SASS (the march loop): its
-    instructions; the largest forward branch inside it (the shading block
-    a vacuum step skips); the instructions a vacuum step issues (loop less
-    that block), of which fp32 (F*, MUFU), branches, and reads of the
-    scene's flag constants (c[0x0][offset] for `flag_offsets`)."""
-    index = {a: k for k, (a, _) in enumerate(instrs)}
-
-    def target(ins):
-        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", ins)
-        if not m:
-            return None
-        return labels.get(m.group(1)) if m.group(1) else index.get(int(m.group(2), 16))
-
-    branches = [(k, target(ins)) for k, (_, ins) in enumerate(instrs)]
-    branches = [(k, t) for k, t in branches if t is not None]
-    loops = [(t, k) for k, t in branches if t <= k]
-    if not loops:
-        return None
-    lo, hi = max(loops, key=lambda l: l[1] - l[0])
-    skips = [(k, t) for k, t in branches if lo <= k < t <= hi]
-    s0, s1 = max(skips, key=lambda b: b[1] - b[0], default=(hi, hi))
-    vac = [instrs[k][1] for k in range(lo, hi + 1) if not s0 < k < s1]
-    ops = [ins.split()[1] if ins.startswith("@") else ins.split()[0] for ins in vac]
-    flags = [ins for ins in vac if any(f"c[0x0][{hex(o)}]" in ins for o in flag_offsets)]
-    return dict(loop=hi - lo + 1, shading_block=s1 - s0 - 1, vacuum=len(vac),
-                fp32=sum(o.startswith(("F", "MUFU")) for o in ops),
-                branches=sum(o.startswith("BRA") for o in ops), flag_reads=len(flags))
 
 
 def timeline_summary(tl: np.ndarray, n_sms: int, full_warps: int) -> str:
@@ -450,12 +429,36 @@ def order_ab(lib, scene, hscal, ho, hd, head_sky, per_ray_all, steps_h, dev):
               f"outputs bitwise the kept order's", flush=True)
 
 
+def device_busy(prof):
+    """(busy ms — the union of the device intervals —, device span ms,
+    device ms by kernel-table name, device events) of a finished
+    torch.profiler run; busy None where it recorded no device events."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, None, {}, 0
+    busy_us, end_us = 0.0, spans[0][0]
+    by_name = {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end_us))
+        end_us = max(end_us, e)
+        symbol = re.sub(r"<.*>", "", name.split("(")[0]).split(" ")[-1]
+        key = next((k for k, v in KERNELS.items() if symbol in v[2]), "other: " + name[:60])
+        by_name[key] = by_name.get(key, 0.0) + (e - s) / 1000.0
+    return busy_us / 1000.0, (end_us - spans[0][0]) / 1000.0, by_name, len(spans)
+
+
+def host_syncs(prof, name: str = "cudaStreamSynchronize") -> int:
+    return sum(1 for e in prof.events() if e.name == name)
+
+
 def trace_frame(render, label: str):
     """One warm call of `render` under torch.profiler: (a summary line of
     device time by kernel and device busy time against wall time, the
     number of cudaStreamSynchronize calls), and writes its Chrome trace
     as <label>_trace.json in the output directory below."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     render()
@@ -468,28 +471,388 @@ def trace_frame(render, label: str):
     out = ROOT / "chiprun_out" / f"{label}_trace.json"
     out.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out))
-    syncs = sum(1 for e in prof.events() if e.name == "cudaStreamSynchronize")
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
+    syncs = host_syncs(prof)
+    busy, span, by_name, n_events = device_busy(prof)
+    if busy is None:
         return (f"phase 7 trace ({label}): frame wall {wall_ms:.3f} ms; the profiler recorded "
                 f"no device events (device time not measured); cudaStreamSynchronize {syncs}",
                 syncs)
-    busy_us, end_us = 0.0, spans[0][0]
-    by_name = {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end_us))  # union of the device intervals
-        end_us = max(end_us, e)
-        symbol = re.sub(r"<.*>", "", name.split("(")[0]).split(" ")[-1]
-        key = next((k for k, v in KERNELS.items() if symbol in v[2]), "other: " + name[:60])
-        by_name[key] = by_name.get(key, 0.0) + (e - s) / 1000.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return (f"phase 7 trace (torch.profiler, one {label} frame): wall {wall_ms:.3f} ms, "
-            f"device busy {busy_us / 1000.0:.3f} ms (idle share "
-            f"{1.0 - busy_us / 1000.0 / wall_ms:.3f}), device span "
-            f"{(end_us - spans[0][0]) / 1000.0:.3f} ms, {len(spans)} device events, "
+            f"device busy {busy:.3f} ms (idle share "
+            f"{1.0 - busy / wall_ms:.3f}), device span "
+            f"{span:.3f} ms, {n_events} device events, "
             f"cudaStreamSynchronize {syncs}; device ms by kernel: "
             + "; ".join(f"{k} {v:.3f}" for k, v in top)), syncs
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes):
+    """Phase 10: the probe kernels (csrc/probes.cu) against their plain
+    twins at the tools' own shapes, then the two tools' own runs — their
+    launches are this phase's count — with each op's measured rate beside
+    the spec arithmetic, the SASS class counts of a vacuum step, each
+    frame kernel's measured floor and SASS diagnostic, and
+    take_along_kernel against torch.gather. Returns (table rows of the two
+    probes, {kernel: (floor ms, floor by, SASS ms)})."""
+    from relativisticraytracer_tpu_torch.tools import roofline as rf
+    from relativisticraytracer_tpu_torch.tools import sky_primitives as sp
+
+    # kernel vs plain twin at the ceiling's shape, every op (these launches
+    # are not counted); the fma pair is the table row's time
+    tiles, iters = rf.ceiling_tiles(dev), rf.ITERS
+    err_chain = 0.0
+    for op in rf.OPS:
+        x = rf.chain_input(op, dev)
+        got = rf.chain(op, iters, x, tiles, lib)
+        want, op_plain_ms = sync_ms(lambda: rf.chain_plain(op, iters, x, tiles))
+        if op in ("fma", "mul", "mul_bf16"):
+            if not torch.equal(got, want):
+                raise AssertionError(f"chain_kernel {op} is not bitwise its plain twin")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        err_chain = max(err_chain, (got - want).abs().max().item())
+        if op == "fma":
+            chain_ms = event_ms(lambda: rf.chain(op, iters, x, tiles, lib))
+            chain_plain_ms = op_plain_ms
+    for s in sp.SIZES:
+        tab, idx = sp.inputs(s, sp.T, dev, seed=s)
+        if not torch.equal(sp.take_along(tab, idx, lib), sp.take_along_plain(tab, idx)):
+            raise AssertionError(f"take_along_kernel S={s} is not bitwise torch.gather")
+    lane_fma = tiles * 1024 * rf.CHAINS * rf.INNER * iters
+    chain_bound = bound(2 * lane_fma, 8 * 128 * 4 + tiles * 1024 * 4)  # an FMA is 2 flops
+    print(f"phase 10 probes vs plain twins at {tiles} tiles x {iters} iterations: chain_kernel "
+          f"(5 ops) max |d| {err_chain:.3g} (fma, mul, mul_bf16 bitwise; rsqrt, exp rtol 1e-5), "
+          f"take_along_kernel bitwise torch.gather at S {list(sp.SIZES)}; chain fma: kernel "
+          f"{chain_ms:.3f} ms, plain {chain_plain_ms:.1f} ms, bound {chain_bound[0]:.3f} ms",
+          flush=True)
+
+    # the tools' runs: the main path of this phase
+    lib.reset_launches()
+    n_steps, n_disk, n_cloud = counts
+    out_dir = ROOT / "chiprun_out"
+    report = rf.main(["--out", str(out_dir / "roofline.json")])
+    sky = sp.main(["--out", str(out_dir / "sky_primitives.json")])
+    launches = {k: lib.launches[k] for k in ("chain", "take_along")}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a probe kernel never launched in its tool's run: {launches}")
+    mhz = max_sm_mhz()
+    spec = {"fp32": n_sms * 128 * mhz * 1e6, "mufu": n_sms * 16 * mhz * 1e6}
+    print(f"phase 10 measured rates (lane-ops/s; spec at the max SM clock {mhz:.0f} MHz: fp32 "
+          f"{n_sms} SMs x 128 lanes = {spec['fp32']:.4g}, MUFU {n_sms} x 16 = "
+          f"{spec['mufu']:.4g}; 67e12 counts an FMA as 2 flops): "
+          + ", ".join(f"{op} {report[f'{op}_lane_ops_per_s']:.4g}" for op in rf.OPS)
+          + f"; pipes {({k: float(f'{v:.4g}') for k, v in report['pipe_rates'].items()})}",
+          flush=True)
+    pipe_rates = report["pipe_rates"]
+    shade = n_disk * DISK_OPS + n_cloud * CLOUD_OPS
+    # the floor: the function's hand-counted operations at the measured
+    # fp32 rate; beside it the SASS diagnostic (the shortest iteration of
+    # the built loop, plus the same shading)
+    floors = {}
+    for name, sym in (("record", "record_kernel"), ("march_sky", "march_camera_sky_kernel"),
+                      ("march_camera", "march_camera_kernel"),
+                      ("march_planes", "march_planes_kernel")):
+        k = report["kernels"][sym]
+        media = (0, 0) if name == "record" else (n_disk, n_cloud)
+        sass_ms = rf.kernel_floor_ms(k["shortest_classes"], pipe_rates, n_steps,
+                                     0.0 if name == "record" else shade)[0]
+        floors[name] = (rf.function_floor_ms(pipe_rates, n_steps, *media), "operations", sass_ms)
+        print(f"  SASS {sym}: vacuum step {k['vacuum']} instructions {k['classes']}; shortest "
+              f"iteration {k['shortest']} {k['shortest_classes']}")
+    # the replay: its replayed steps and the shading, or its bytes at the spec rate
+    r_ops = rf.function_floor_ms(pipe_rates, n_replay, n_disk, n_cloud)
+    r_bytes = replay_bytes / PEAK_BYTES * 1000.0
+    floors["replay"] = ((r_ops, "operations", None) if r_ops >= r_bytes
+                        else (r_bytes, "bytes", None))
+    floors["sky"] = (None, None, None)  # byte-bound, and no memory rate is measured
+    for name, row in sky.items():
+        if name.startswith("take_along") and not row["bitwise"]:
+            raise AssertionError(f"{name}: the tool's kernel output is not torch.gather's")
+    s64 = sky["take_along_S64"]
+    print("phase 10 take_along_kernel (t 2040; device ms a call, the L2 cleared before each): "
+          + "; ".join(f"S{s} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, torch.gather "
+                      f"{r['gather_ms']:.4f}" for s, r in ((s, sky[f"take_along_S{s}"])
+                                                           for s in sp.SIZES))
+          + f"; launches {launches}", flush=True)
+    rows = {
+        "chain": dict(launches=launches["chain"], max_abs_err=err_chain, ms=chain_ms,
+                      plain_ms=chain_plain_ms, bound_ms=chain_bound[0], bound_by=chain_bound[1],
+                      library_ms=None),
+        "take_along": dict(launches=launches["take_along"], max_abs_err=0.0, ms=s64["ms"],
+                           plain_ms=s64["gather_ms"], bound_ms=s64["bound_ms"],
+                           bound_by="bytes", library_ms=s64["gather_ms"]),
+    }
+    return rows, floors
+
+
+def yuv_oracle(frame: np.ndarray) -> np.ndarray:
+    """RGBA -> planar YUV420 (BT.601 limited, 2x2 box chroma) in float64
+    NumPy, independent of the port's converter."""
+    h, w, _ = frame.shape
+    rgb = frame[..., :3].astype(np.float64) / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    yp = 0.299 * r + 0.587 * g + 0.114 * b
+    y8 = np.clip(16.0 + 219.0 * yp + 0.5, 0, 255).astype(np.uint8)
+
+    def sub(c):
+        c = c.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+        return np.clip(c + 0.5, 0, 255).astype(np.uint8)
+
+    u = 128.0 + 112.0 * (b - yp) / 0.886
+    v = 128.0 + 112.0 * (r - yp) / 0.701
+    return np.concatenate([y8.reshape(-1), sub(u).reshape(-1), sub(v).reshape(-1)])
+
+
+def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
+    """Phase 11: the host runtime at full width — AnimationJob (both
+    programs, the raw sink, resume, two devices, yuv420p, a PNG sequence),
+    the Session at two presets, the CLI as subprocesses and the previews.
+    `renderers` are phase 5's 1080p compact and inline renderers, `thr`
+    their pipelined ms/frame."""
+    import io as _io
+    import os
+    import sys
+
+    from relativisticraytracer_tpu_torch.config import RenderSettings, SceneConfig
+    from relativisticraytracer_tpu_torch.io import video as tvideo
+    from relativisticraytracer_tpu_torch.io.image import decode_png
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import BUILD_DIR, REPLAY_PASSES
+    from relativisticraytracer_tpu_torch.paths import default_paths, interpolate_path
+    from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
+    from relativisticraytracer_tpu_torch.render.pipeline import Renderer
+    from relativisticraytracer_tpu_torch.runtime import framesink, profiling
+    from relativisticraytracer_tpu_torch.runtime.app import AnimationJob, Session
+    from relativisticraytracer_tpu_torch.runtime.preview import run_terminal_preview
+
+    path = default_paths()[0]
+    fps, n = 24, 12
+    hw, hh = 1920, 1080
+    has_ffmpeg = tvideo.ffmpeg_available()
+    sink = "native" if framesink._load_library() is not None else "Python"
+    real_ffmpeg_available = tvideo.ffmpeg_available
+    tvideo.ffmpeg_available = lambda: False  # the raw sink: its bytes are checkable
+    os.environ["RRT_RECORDING_DIR"] = str(tmp / "recordings")
+
+    def frame_at(r, k):
+        t = (k + 1) / fps
+        return r.render_np(camera_state_from_pose(*interpolate_path(path, t)), None, t)
+
+    def job(r, name, **kw):
+        kw.setdefault("duration", n / fps)
+        # os.path.join keeps a trailing "/" (a PNG-sequence target); pathlib drops it
+        return AnimationJob(path=path, renderer=r, fps=fps, out_path=os.path.join(tmp, name),
+                            **kw)
+
+    try:
+        files = {}
+        for prog, r in renderers.items():
+            job(r, f"warm_{prog}.rgba", duration=2 / fps).run(resume=False)
+            lib.reset_launches()
+            intervals = []
+            stats = job(r, f"{prog}.rgba").run(
+                resume=False, progress=lambda k, total, ms: intervals.append(ms))
+            ran = {k: v for k, v in lib.launches.items() if v}
+            raw = np.fromfile(stats["out_path"], np.uint8).reshape(n, hh, hw, 4)
+            files[prog] = pathlib.Path(stats["out_path"]).read_bytes()
+            same = all(np.array_equal(raw[k], frame_at(r, k)) for k in (0, n - 1))
+            with profiling.trace(str(ROOT / "chiprun_out" / f"job_trace_{prog}")) as prof:
+                t0 = time.perf_counter()
+                job(r, f"traced_{prog}.rgba", duration=4 / fps).run(resume=False)
+                wall = (time.perf_counter() - t0) * 1000.0
+            busy, span, _, _ = device_busy(prof)
+            idle = "not measured (no device events)" if busy is None else (
+                f"{1.0 - busy / wall:.3f} of the run's wall time (busy {busy:.3f} of "
+                f"{wall:.3f} ms), {1.0 - busy / span:.3f} of the device span "
+                f"({span:.3f} ms)")
+            print(f"phase 11 job {prog} 1920x1080 x {n} frames ({sink} sink, raw): "
+                  f"mean_frame_ms {stats['mean_frame_ms']:.3f} (phase 5 pipelined "
+                  f"{thr[prog]:.3f}; the wall includes opening the sink and its final "
+                  f"flush), median interval between frames reaching the sink "
+                  f"{np.median(intervals[1:]):.3f} ms; frames 0 and {n - 1} bitwise "
+                  f"render_np {same}; traced 4 "
+                  f"frames: cudaStreamSynchronize {host_syncs(prof) / 4:.2f} a frame, "
+                  f"cudaEventSynchronize {host_syncs(prof, 'cudaEventSynchronize') / 4:.2f} a "
+                  f"frame, device idle share {idle}; launches {ran}", flush=True)
+            if not same or stats["frames_written"] != n:
+                raise AssertionError(f"{prog} job: frames differ from render_np or missing")
+            want = ({"march_sky"} if prog == "inline"
+                    else {"record", "sky"} | set(REPLAY_PASSES))
+            if not want <= set(ran):
+                raise AssertionError(f"{prog} job did not run its kernels: {ran}")
+        if files["compact"] != files["inline"]:
+            raise AssertionError("compact and inline jobs wrote different bytes")
+
+        # the device->host copy of one frame, pinned and pageable
+        r = renderers["compact"]
+        dev_frame = r.render(camera_state_from_pose(*interpolate_path(path, 1 / fps)), None,
+                             1 / fps)
+        host = torch.empty(dev_frame.shape, dtype=torch.uint8, pin_memory=True)
+        d2h = event_ms(lambda: host.copy_(dev_frame, non_blocking=True), reps=10)
+        _, pageable = sync_ms(lambda: dev_frame.cpu(), reps=10)
+
+        # yuv420p
+        stats = job(r, "yuv.mp4", transfer="yuv420p").run(resume=False)
+        yuv = pathlib.Path(stats["out_path"]).read_bytes()
+        fb = hw * hh * 3 // 2
+        got0 = np.frombuffer(yuv[:fb], np.uint8)
+        want0 = yuv_oracle(np.frombuffer(files["compact"][:hw * hh * 4], np.uint8)
+                           .reshape(hh, hw, 4))
+        d = np.abs(got0.astype(int) - want0)
+        from relativisticraytracer_tpu_torch.render.postfx import yuv420_from_rgba8
+
+        yuv_frame = yuv420_from_rgba8(dev_frame)
+        yuv_d2h = event_ms(lambda: host.view(-1)[:fb].copy_(yuv_frame, non_blocking=True),
+                           reps=10)
+        print(f"phase 11 transfer yuv420p: file {len(yuv)} bytes (= {n} x {fb}; rgba "
+              f"{len(files['compact'])} = {n} x {hw * hh * 4}); frame 0 vs the float64 oracle "
+              f"on the RGBA frame: max |d| {int(d.max())}, {int((d > 0).sum())} of {fb} bytes "
+              f"differ; D2H per frame pinned rgba {d2h:.3f} ms, yuv420p {yuv_d2h:.3f} ms, "
+              f"pageable rgba .cpu() {pageable:.3f} ms", flush=True)
+        if len(yuv) != n * fb or d.max() > 1:
+            raise AssertionError("yuv420p job: wrong size or frame 0 off the oracle")
+
+        # resume: interrupted after 5 frames, then run(resume=True)
+        class Interrupt(RuntimeError):
+            pass
+
+        def stop_at_5(k, total, ms):
+            if k >= 5:
+                raise Interrupt()
+
+        resumed = job(r, "resumed.rgba", checkpoint_every=2)
+        try:
+            resumed.run(resume=False, progress=stop_at_5)
+            raise AssertionError("the interrupted job ran to its end")
+        except Interrupt:
+            pass
+        rstats = resumed.run(resume=True)
+        same_resume = (tmp / "resumed.rgba").read_bytes() == files["compact"]
+        # two devices (one card twice)
+        dstats = job(r, "devices.rgba").run(resume=False, devices=["cuda:0", "cuda:0"])
+        same_devices = (tmp / "devices.rgba").read_bytes() == files["compact"]
+        # a PNG sequence, decoded by the port's reader
+        t0 = time.perf_counter()
+        job(r, "png/", duration=4 / fps).run(resume=False)
+        png_s = time.perf_counter() - t0
+        pngs = sorted((tmp / "png").glob("frame_*.png"))
+        same_png = len(pngs) == 4 and all(
+            np.array_equal(decode_png(p), np.frombuffer(files["compact"], np.uint8)
+                           .reshape(n, hh, hw, 4)[k]) for k, p in enumerate(pngs))
+        print(f"phase 11 resume after 5 frames: resumed at {rstats['resumed_at']}, file "
+              f"byte-identical {same_resume}; devices [cuda:0, cuda:0] ({dstats['devices']} "
+              f"devices) byte-identical {same_devices}; PNG sequence of 4 frames "
+              f"({png_s:.2f} s) decoded equal {same_png}", flush=True)
+        if not (same_resume and same_devices and same_png):
+            raise AssertionError("resume, two-device or PNG job differs from the job's file")
+        if has_ffmpeg:  # the MP4 sink through the machine's ffmpeg
+            tvideo.ffmpeg_available = real_ffmpeg_available
+            mstats = job(r, "clip.mp4", duration=4 / fps).run(resume=False)
+            size = pathlib.Path(mstats["out_path"]).stat().st_size
+            print(f"phase 11 MP4 sink (ffmpeg on this machine): {mstats['frames_written']} "
+                  f"frames, {size} bytes", flush=True)
+            tvideo.ffmpeg_available = lambda: False
+        else:
+            print("phase 11 MP4 sink: not run, no ffmpeg on this machine (the raw sink and its "
+                  "sidecar ran above)", flush=True)
+
+        # the Session at two presets, with its motion renderer
+        scene = SceneConfig()
+        for preset, (sw, shh), motion_steps in (("realtime", (480, 272), 600),
+                                                ("native", (1000, 700), 400)):
+            main_r = Renderer(scene, RenderSettings(width=sw, height=shh), skybox=head_sky,
+                              device=dev)
+            motion_r = Renderer(scene, RenderSettings(width=sw, height=shh,
+                                                      max_steps=motion_steps),
+                                skybox=main_r.sky, device=dev)
+            s = Session(renderer=main_r, motion_renderer=motion_r)
+            s.tick(1 / 30)
+            ms = {"still": [], "flying": [], "recording": []}
+            for phase_name in ms:
+                if phase_name == "recording":
+                    s.handle_key("r")
+                for _ in range(10):
+                    if phase_name == "flying":
+                        s.handle_key("w")
+                        s.mouse(3.0, 0.5)
+                    t0 = time.perf_counter()
+                    frame = s.tick(1 / 30)
+                    ms[phase_name].append((time.perf_counter() - t0) * 1000.0)
+            s.handle_key("r")
+            rec_files = sorted((tmp / "recordings").glob("*.rgba"))
+            rec_bytes = rec_files[-1].stat().st_size if rec_files else 0
+            s.close()
+            print(f"phase 11 Session {preset} {sw}x{shh} (motion {motion_steps} steps): tick ms "
+                  + ", ".join(f"{k} median {np.median(v):.3f}" for k, v in ms.items())
+                  + f"; recorded {rec_bytes // (sw * shh * 4)} frames; frame {frame.shape}",
+                  flush=True)
+            if rec_bytes != 10 * sw * shh * 4 or frame.shape != (shh, sw, 4):
+                raise AssertionError(f"Session {preset}: recorded {rec_bytes} bytes")
+            for f in rec_files:
+                f.unlink()
+
+        # the terminal preview (no Pillow needed) and the JPEG preview
+        s = Session(renderer=Renderer(scene, RenderSettings(width=480, height=272),
+                                      skybox=head_sky, device=dev))
+        out = _io.StringIO()
+        t0 = time.perf_counter()
+        run_terminal_preview(s, frames=3, width=80, fps_cap=1000.0, out=out)
+        term_ms = (time.perf_counter() - t0) * 1000.0 / 3
+        if "▀" not in out.getvalue():
+            raise AssertionError("terminal preview drew nothing")
+        try:
+            import PIL.Image  # noqa: F401
+        except ImportError:
+            jpeg = "PreviewServer /frame.jpg not run: Pillow is not installed on this machine"
+        else:
+            import http.client
+
+            from relativisticraytracer_tpu_torch.runtime.preview import PreviewServer
+
+            srv = PreviewServer(s, host="127.0.0.1", port=0)
+            srv.start()
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+                conn.request("GET", "/frame.jpg")
+                body = conn.getresponse().read()
+                conn.close()
+            finally:
+                srv.stop()
+            if body[:2] != b"\xff\xd8":
+                raise AssertionError("/frame.jpg is not a JPEG")
+            jpeg = f"PreviewServer /frame.jpg: a {len(body)}-byte JPEG"
+        s.close()
+        print(f"phase 11 terminal preview 3 frames at 480x272: {term_ms:.1f} ms a frame; {jpeg}",
+              flush=True)
+    finally:
+        tvideo.ffmpeg_available = real_ffmpeg_available
+
+    # the CLI as subprocesses (the library is already built: no nvcc)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    before = set(BUILD_DIR.glob("*.so"))
+    cli = []
+    for argv in (["paths"], ["still", "--preset", "cinema", "--out", str(tmp / "still.png")],
+                 ["anim", "--preset", "realtime", "--fps", "8", "--duration", "1",
+                  "--out", str(tmp / "cli_anim") + "/"]):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "relativisticraytracer_tpu_torch", *argv],
+                       check=True, capture_output=True, text=True, timeout=600, cwd=tmp, env=env)
+        cli.append((argv[0], time.perf_counter() - t0))
+    built = set(BUILD_DIR.glob("*.so")) - before
+    still = decode_png(tmp / "still.png")
+    n_anim = len(list((tmp / "cli_anim").glob("frame_*.png")))
+    print("phase 11 CLI (subprocesses): " + ", ".join(f"{c} {w * 1000:.0f} ms" for c, w in cli)
+          + f"; kernel build in them: {'none (library cached)' if not built else built}; "
+          f"still {still.shape}, anim {n_anim} PNG frames", flush=True)
+    if still.shape != (1080, 1920, 4) or n_anim != 8 or built:
+        raise AssertionError("CLI runs: wrong outputs or an unexpected kernel build")
 
 
 def main() -> None:
@@ -528,6 +891,7 @@ def main() -> None:
         sky_coords,
         skybox_from_array,
     )
+    from relativisticraytracer_tpu_torch.tools import roofline
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -566,18 +930,12 @@ def main() -> None:
           f"a block, expensive tiles first; tiles (= blocks): 1920x1080 "
           f"{cuda_lib.tile_count(1920, 1080)}, a 270x960 shard {cuda_lib.tile_count(960, 270)}, "
           f"192x108 {cuda_lib.tile_count(192, 108)}")
-    cuobjdump = pathlib.Path(cuda_lib._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
-                          text=True, timeout=120).stdout
+    sass = roofline.library_sass(lib)
     # sm_90 kernels read their parameters (SceneConsts first) from c[0x0][0x210] on
     flag_offsets = [0x210 + getattr(cuda_lib.SceneConsts, f).offset
                     for f in ("enable_disk", "enable_clouds", "has_spin", "has_mass_pos")]
-    for fname, (instrs, labels) in sass_functions(sass).items():
-        sym = next((k for k in ("record_kernel", "march_camera_sky_kernel", "march_camera_kernel",
-                                "march_planes_kernel") if k in fname), None)
-        if sym is not None and (sym == "record_kernel" or "ILb0ELb0E" in fname):
-            print(f"  SASS {sym}: {len(instrs)} instructions; march loop "
-                  f"{sass_loop_stats(instrs, labels, flag_offsets)}")
+    for sym, st in roofline.step_stats(sass, flag_offsets).items():
+        print(f"  SASS {sym}: march loop {st}")
     errs = {}
 
     # ---- phase 3: kernels vs plain versions on the card
@@ -1065,13 +1423,36 @@ def main() -> None:
         if syncs != 1:
             raise AssertionError(f"compact frame: {syncs} cudaStreamSynchronize, expected 1")
 
-    table = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
-        for name, (src, rep, _) in KERNELS.items()
-    ]}
+    # ---- phase 10: the probes, and each frame kernel's measured floor
+    t_phase = time.perf_counter()
+    probe_rows, floors = phase10_probes(
+        lib, dev, n_sms, (n_steps, n_disk, n_cloud), n_replay,
+        horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16))
+    for name, (f_ms, f_by, sass_ms) in floors.items():
+        floor = ("no measured floor (byte-bound; no memory rate is measured)" if f_ms is None else
+                 f"measured floor {f_ms:.3f} ms ({f_by}; kernel at {f_ms / ms[name]:.3f} of it)")
+        diag = "" if sass_ms is None else f", SASS shortest-iteration time {sass_ms:.3f} ms"
+        print(f"  {name}: kernel {ms[name]:.3f} ms, {floor}{diag}, 67e12 bound "
+              f"{bounds[name][0]:.3f} ms ({bounds[name][1]})", flush=True)
+
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 11: the host runtime at full width
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase11_runtime(lib, dev, {"compact": renderer, "inline": inline}, head_sky,
+                        {"compact": thr, "inline": thr_i / 5}, pathlib.Path(tmp))
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    rows = {name: dict(launches=launches[name], max_abs_err=errs[name], ms=ms[name],
+                       plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+                       bound_by=bounds[name][1], library_ms=None,
+                       floor_ms=floors[name][0], floor_by=floors[name][1],
+                       sass_floor_ms=floors[name][2])
+            for name in floors}
+    rows.update(probe_rows)
+    table = {"kernels": [dict(name=name, route="cuda", source=src, replaces=rep, **rows[name])
+                         for name, (src, rep, _) in KERNELS.items()]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

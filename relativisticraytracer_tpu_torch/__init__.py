@@ -4,7 +4,10 @@ on PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 A port of relativisticraytracer_tpu (JAX/Pallas), which stays the
 reference. The frame programs run the record, replay, sky and fused
 march kernels (csrc/) on a CUDA device, the default, and their plain
-PyTorch versions on the CPU when the caller asks for it.
+PyTorch versions on the CPU when the caller asks for it. The host runtime
+(`runtime/`: session, animation jobs, frame sink, preview; `io/`; `paths`)
+and the CLI (`python -m relativisticraytracer_tpu_torch`) drive them;
+`tools/` holds the two measurement probes (csrc/probes.cu).
 """
 
 from relativisticraytracer_tpu_torch.config import (

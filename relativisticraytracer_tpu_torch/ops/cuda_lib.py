@@ -1,4 +1,6 @@
-"""Build, load and call the hand-written CUDA kernels (csrc/*.cu).
+"""Build, load and call the hand-written CUDA kernels (csrc/*.cu): the
+frame kernels (record, replay, sky, march) and the measurement probes
+(probes.cu).
 
 The kernels are compiled at first use by `nvcc`, one process per source
 started together, and linked into one shared library with a plain C
@@ -51,7 +53,7 @@ from relativisticraytracer_tpu_torch.media.densities import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("record.cu", "replay.cu", "sky.cu", "march.cu")
+SOURCES = ("record.cu", "replay.cu", "sky.cu", "march.cu", "probes.cu")
 HEADERS = ("march_common.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -315,7 +317,12 @@ def order_from_keys(keys: torch.Tensor) -> torch.Tensor:
 # The replay's passes (csrc/replay.cu): march, disk and cloud shading,
 # compositing; each launch counts under its own name.
 REPLAY_PASSES = ("replay_march", "replay_shade_disk", "replay_shade_cloud", "replay_composite")
-KERNELS = ("record",) + REPLAY_PASSES + ("sky", "march_sky", "march_camera", "march_planes")
+# The measurement probes (csrc/probes.cu): tools/roofline.py's op chains and
+# tools/sky_primitives.py's block-resident gather.
+PROBES = ("chain", "take_along")
+CHAIN_OPS = ("fma", "mul", "mul_bf16", "rsqrt", "exp")
+KERNELS = (("record",) + REPLAY_PASSES + ("sky", "march_sky", "march_camera", "march_planes")
+           + PROBES)
 
 
 class KernelLibrary:
@@ -404,6 +411,8 @@ class KernelLibrary:
             "march_tile_keys": [sc, cam] + [ci] * 3 + [vp] * 3,
             "march_attrs": [sc, ci, ci, vp],
             "record_attrs": [ci, vp],
+            "chain": [ci, ci, ci, vp, vp, vp],
+            "take_along": [ci, ci, vp, vp, vp, vp],
         }
         if self.timeline:
             argtypes["set_timeline"] = [vp]
@@ -569,6 +578,41 @@ class KernelLibrary:
                 order.data_ptr(), intensity.data_ptr(), trans.data_ptr(), hit.data_ptr(),
                 vel.data_ptr(), stream)
         self._launched("march_planes", err)
+
+    def chain(self, op: str, iters: int, x, out, stream) -> None:
+        """csrc/probes.cu::chain_kernel (or chain_bf16_kernel for "mul_bf16"):
+        element e of `out` [tiles * 8, 128] float32 runs the 16 op chains
+        from x[e % 1024]; `x` is one [8, 128] tile, bfloat16 for "mul_bf16",
+        else float32."""
+        dtype = torch.bfloat16 if op == "mul_bf16" else torch.float32
+        if out.dim() != 2 or out.shape[1] != 128 or out.shape[0] % 8:
+            raise ValueError(f"chain: out must be [tiles * 8, 128], got {tuple(out.shape)}")
+        check("chain", [(x, dtype, (8, 128)), (out, torch.float32, tuple(out.shape))])
+        if iters < 0:
+            raise ValueError(f"chain: iters must be >= 0, got {iters}")
+        with torch.cuda.device(out.device):
+            err = self._lib.rrt_chain(CHAIN_OPS.index(op), iters, out.numel(), x.data_ptr(),
+                                      out.data_ptr(), stream)
+        self._launched("chain", err)
+
+    def take_along(self, tab, idx, out, stream) -> None:
+        """csrc/probes.cu::take_along_kernel: out[8i + r, c] =
+        tab[S i + idx[8i + r, c], c] for tab [t * S, 128] float32 and idx,
+        out [t * 8, 128] (int32, float32); S <= 64 (its shared tile)."""
+        rows = idx.shape[0]
+        if idx.dim() != 2 or idx.shape[1] != 128 or rows % 8 or tab.dim() != 2 \
+                or tab.shape[0] % max(rows // 8, 1):
+            raise ValueError(f"take_along: bad shapes {tuple(tab.shape)}, {tuple(idx.shape)}")
+        t = rows // 8
+        s = tab.shape[0] // max(t, 1)
+        if not 1 <= s <= 64:
+            raise ValueError(f"take_along: table rows per tile must be 1..64, got {s}")
+        check("take_along", [(tab, torch.float32, (t * s, 128)), (idx, torch.int32, (rows, 128)),
+                             (out, torch.float32, (rows, 128))])
+        with torch.cuda.device(out.device):
+            err = self._lib.rrt_take_along(t, s, tab.data_ptr(), idx.data_ptr(),
+                                           out.data_ptr(), stream)
+        self._launched("take_along", err)
 
     def attrs(self, name: str, threads: int, device) -> Dict[str, int]:
         """Registers and local (spill) bytes a thread, and resident blocks

@@ -15,12 +15,19 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from relativisticraytracer_tpu_torch.core.vecmath import Vec3, smoothstep
+from relativisticraytracer_tpu_torch.core.vecmath import Vec3, fdiv, smoothstep
 
 # Rec.709 luma weights (post_processing.h:28)
 _LUMA_R = 0.2126
 _LUMA_G = 0.7152
 _LUMA_B = 0.0722
+
+
+def grain_hash(px, py):
+    """Film-grain hash (reference: post_processing.h:9-11; unused by the
+    reference kernel, kept for API parity)."""
+    d = px * 12.9898 + py * 78.233
+    return torch.fmod(torch.sin(d) * 43758.5453, 1.0)
 
 
 def apply_lens_distortion(uv_x, uv_y, k) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,3 +120,31 @@ def downsample_box(ldr: Vec3, s: int) -> Vec3:
         return c.reshape(hs // s, s, ws // s, s).mean(dim=(1, 3))
 
     return Vec3(d(ldr.x), d(ldr.y), d(ldr.z))
+
+
+def yuv420_from_rgba8(frame: torch.Tensor) -> torch.Tensor:
+    """uint8[H, W, 4] RGBA -> flat uint8[H*W*3//2] planar YUV420 (BT.601
+    limited range), on the frame's device: the byte stream FFmpeg expects
+    for `-f rawvideo -pix_fmt yuv420p` (Y plane, then 2x2-subsampled U, V).
+
+    The animation transfer format: 1.5 B/px over the device->host link
+    instead of 4 (reference encode: main.cpp:60-72, rawvideo rgba in,
+    -pix_fmt yuv420p out). The divisions are float32 divisions
+    (vecmath.fdiv), the chroma is averaged over its 2x2 box before the +0.5,
+    and the uint8 cast truncates, as in the JAX package. H and W must be
+    even."""
+    h, w, _ = frame.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"yuv420 needs even dims, got {w}x{h}")
+    rgb = frame[..., :3].to(torch.float32) * (1.0 / 255.0)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    yp = 0.299 * r + 0.587 * g + 0.114 * b
+    y8 = torch.clamp(16.0 + 219.0 * yp + 0.5, 0.0, 255.0).to(torch.uint8)
+    u = 128.0 + fdiv(112.0 * (b - yp), 0.886)
+    v = 128.0 + fdiv(112.0 * (r - yp), 0.701)
+
+    def sub(c):  # 2x2 box average, then quantize
+        c = c.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+        return torch.clamp(c + 0.5, 0.0, 255.0).to(torch.uint8)
+
+    return torch.cat([y8.reshape(-1), sub(u).reshape(-1), sub(v).reshape(-1)])

@@ -359,3 +359,57 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for t in (z, z.to("meta")):
         with pytest.raises(ValueError, match="CUDA device"):
             cuda_lib.check("record", [(t, torch.float32, (4, 8))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fma", "mul", "mul_bf16", "rsqrt", "exp"])
+def test_chain_kernel_matches_plain(cuda, op):
+    """The probe chains against their torch loop on the card, over the
+    tool's ITERS x 32 ops a chain: bitwise for fma, mul and mul_bf16 (one
+    correctly rounded op each; the loop's fma rounds once from float64);
+    rtol 1e-5 for rsqrt (MUFU's approximation against torch's) and exp."""
+    from relativisticraytracer_tpu_torch.tools import roofline as rf
+
+    x = rf.chain_input(op, cuda)
+    got = rf.chain(op, rf.ITERS, x, 3)
+    want = rf.chain_plain(op, rf.ITERS, x, 3)
+    if op in ("fma", "mul", "mul_bf16"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [8, 16, 32, 64])
+def test_take_along_kernel_bitwise_gather(cuda, s):
+    from relativisticraytracer_tpu_torch.tools import sky_primitives as sp
+
+    tab, idx = sp.inputs(s, 37, cuda, seed=s)
+    assert torch.equal(sp.take_along(tab, idx), sp.take_along_plain(tab, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transfer", ["rgba", "yuv420p"])
+def test_animation_job_on_the_card_is_render_np(cuda, tmp_path, monkeypatch, transfer):
+    """A 64x48 job on the card (pinned copies, events) writes exactly the
+    frames render_np returns, or their YUV420 bytes."""
+    from relativisticraytracer_tpu_torch.paths import default_paths, interpolate_path
+    from relativisticraytracer_tpu_torch.render.postfx import yuv420_from_rgba8
+    from relativisticraytracer_tpu_torch.runtime.app import AnimationJob
+
+    monkeypatch.setattr("relativisticraytracer_tpu_torch.io.video.ffmpeg_available",
+                        lambda: False)
+    r = Renderer(SceneConfig(max_steps=400), RenderSettings(width=64, height=48, max_steps=400),
+                 skybox_rgba=SKY, device=cuda)
+    path = default_paths()[0]
+    stats = AnimationJob(path=path, renderer=r, fps=4, duration=1.5, transfer=transfer,
+                         out_path=str(tmp_path / "clip.mp4")).run()
+    want = []
+    for k in range(6):
+        t = (k + 1) / 4
+        frame = r.render(camera_state_from_pose(*interpolate_path(path, t)), None, t)
+        if transfer == "yuv420p":
+            frame = yuv420_from_rgba8(frame)
+        want.append(frame.cpu().numpy().tobytes())
+    assert stats["frames_written"] == 6
+    assert pathlib.Path(stats["out_path"]).read_bytes() == b"".join(want)
