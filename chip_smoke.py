@@ -17,9 +17,11 @@ script exits non-zero without the final result line:
   3. kernels vs plain PyTorch on the card: record at 192x108 with 2000
      steps (hit mismatch < 1e-3, sky index equal where hit agrees), replay's
      three passes on that record (rtol 2e-6 / atol 5e-7; bitwise
-     expected), sky on random and smooth
-     directions with chromatic aberration on and off (bitwise where
-     unmasked), the three fused march kernels (march_sky, march_camera,
+     expected), the per-ray overflow kernel at a forced capacity of 1 step
+     and of half the steps (bitwise the plain replay), sky on random and
+     smooth directions with chromatic aberration on and off, with and
+     without a mask, at n % 4 == 0 and != 0 (bitwise where unmasked), the
+     three fused march kernels (march_sky, march_camera,
      march_planes) at 192x108 with 2000 steps (hit mismatch < 1e-3, (I, T)
      and v or the sky coordinates to rtol 2e-6 / atol 5e-7 where hits
      agree, sky indices equal), and the march's tile-key kernel (its
@@ -32,27 +34,38 @@ script exits non-zero without the final result line:
      2048x4096 starfield): latency and pipelined throughput, per-kernel
      times beside the plain versions', the frame against the plain path on
      the card (RMSE < 1e-3), launches of each kernel on the main path,
-     replayed rays and peak memory, each replay pass's time (march, shade
-     disk, shade cloud, composite) and its step list's size; then the same frame with
-     media_pass="inline" (march_sky: latency, throughput, RMSE against the
-     compact frame), the no-sky frame (march_camera), march_planes on the
+     replayed rays and peak memory, the replay's device-side bookkeeping
+     (replay_plan) and each replay pass's time (march, shade disk, shade
+     cloud, composite), the step list's capacity and size, the per-ray
+     overflow kernel's no-op launch and, at a forced capacity of half the
+     steps, its launch against its plain version on the rays past it; then
+     the same frame with media_pass="inline" (march_sky and the sky kernel
+     without a mask: latency, throughput, RMSE against the compact frame), the no-sky frame (march_camera), march_planes on the
      headline rays, march_sky on the same frame with no medium (the same
      trajectories: the difference is the inline shading's cost), one plain
      march at 1080p (the plain time of the three
      march kernels, with its ray-step and per-ray step and probe counts,
      which size the bounds and give the SIMT efficiency of 16x2 and 8x4
-     warp footprints and of ideal lane refill);
+     warp footprints and of ideal lane refill); and the replay's traffic
+     on the three default paths, each second, at the cinema, native and
+     realtime sizes (tools/replay_traffic.py: steps a pixel, the frames
+     whose rays overflow the step list, their replay ms against a list
+     that holds every step, the two replays bitwise);
   6. the -fmad=false vs contracted-FMA build A/B on the headline frame
      (informational; a build or launch failure still fails the run);
-  7. with --trace only: one headline frame and one inline headline frame
-     under torch.profiler — device time per kernel, device busy time
-     against the frame's wall time, host syncs (the compact frame must
-     have exactly one cudaStreamSynchronize, its `nonzero`) — and their Chrome traces in
-     chiprun_out/{headline,inline}_trace.json;
+  7. one headline frame and one inline headline frame under
+     torch.profiler — device time per kernel, device busy time against the
+     frame's wall time, host syncs (the compact frame must have no
+     cudaStreamSynchronize, and an event recorded right after `render`
+     returns must still be pending; the inline frame must fetch its sky
+     through the sky kernel, with no torch gather) — and their Chrome
+     traces in chiprun_out/{headline,inline}_trace.json;
   8. shards on one card: the 1080p frame on a 4x2 grid of cuda:0, shards
      run one after another — the compact branch (strip-interleaved) and
      the inline branch (march_planes) — each bitwise the single-device
-     frame after `reassemble`, with each shard's ms; inline, each shard's
+     frame after `reassemble`, with each shard's ms; the compact grid's
+     host syncs under torch.profiler (none) and each shard's record launch
+     by CUDA events; inline, each shard's
      march_planes launch by CUDA events beside its ray-steps and bound,
      and one line from per-warp timelines (a measurement build,
      cuda_lib.kernels(timeline=True)) of the slowest shard's launch and of
@@ -61,7 +74,10 @@ script exits non-zero without the final result line:
   9. the fused march's launch order against row-major, every tile by its
      key and the true-cost order, on the 8 shard launches and the three
      full-frame kernels, in turns;
- 10. the probe kernels (csrc/probes.cu) at the tools' own shapes:
+ 10. the card's streaming rate (a 1 GiB device-to-device copy, the L2
+     cleared before each), which gives the byte-bound rows (sky,
+     take_along) a measured floor; the probe kernels (csrc/probes.cu) at
+     the tools' own shapes:
      chain_kernel over the ceiling's 4 waves of blocks at 500 iterations
      against its torch loop (fma, mul and mul_bf16 bitwise, rsqrt and exp
      rtol 1e-5) and take_along_kernel bitwise torch.gather; then the two
@@ -78,10 +94,13 @@ script exits non-zero without the final result line:
      AnimationJob through the raw sink with the compact and the inline
      program (frames 0 and 11 bitwise Renderer.render_np; mean_frame_ms
      beside phase 5; host syncs and the device's idle share from a
-     torch.profiler trace of 4 job frames); the pinned D2H copy; the
+     torch.profiler trace of 4 job frames, no cudaStreamSynchronize in
+     either), and each compact job frame's replay steps and rays past
+     the step list; the pinned D2H copy; the
      yuv420p transfer (file size, frame 0 within 1 level of a float64
      oracle); resume after an interruption at frame 5, devices
-     ["cuda:0", "cuda:0"] and a 4-frame PNG sequence, each byte-identical;
+     ["cuda:0", "cuda:0"] (traced: no cudaStreamSynchronize) and a
+     4-frame PNG sequence, each byte-identical;
      the Session at the realtime and native presets with their motion
      renderers (tick ms still, flying and recording); the terminal
      preview and PreviewServer's /frame.jpg (where Pillow imports); the
@@ -91,8 +110,10 @@ script exits non-zero without the final result line:
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
 and what bounds it, and for the frame kernels the measured floor, what
-sets it and the SASS diagnostic), the nvidia-smi line, and last {"ok": true,
-"device": {...}}. It needs one CUDA card and imports no JAX.
+sets it and the SASS diagnostic; the per-ray overflow kernel's ms is its
+forced-capacity launch, its main-path no-op launch beside it), the
+nvidia-smi line, and last {"ok": true, "device": {...}}. It needs one
+CUDA card and imports no JAX.
 """
 
 from __future__ import annotations
@@ -145,6 +166,10 @@ KERNELS = {
     "replay": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
                ("replay_march_kernel", "shade_disk_kernel", "shade_cloud_kernel",
                 "replay_composite_kernel")),
+    # the same TPU kernel's exact fallback (its image-layout replay under
+    # lax.cond, pallas_compact.py:735-744): the rays past the step list
+    "replay_overflow": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
+                        ("replay_overflow_kernel",)),
     "sky": (CSRC + "sky.cu", "relativisticraytracer_tpu/ops/pallas_sky.py:189", ("sky_kernel",)),
     "march_sky": (CSRC + "march.cu", "relativisticraytracer_tpu/ops/pallas_march.py:543",
                   ("march_camera_sky_kernel",)),
@@ -177,10 +202,19 @@ def sync_ms(fn, reps: int = 1):
     return out, (time.perf_counter() - t0) * 1000.0 / reps
 
 
+# A sleep kernel's cycles (~10 ms on an H100) that hold the stream while
+# the host enqueues the calls event_ms times.
+HOLD_CYCLES = 20_000_000
+
+
 def event_ms(fn, reps: int = 5) -> float:
-    """Mean device ms per call, by CUDA events, after one warm-up call."""
+    """Mean device ms per call, by CUDA events, after one warm-up call.
+    The stream waits on a sleep kernel while the host enqueues the calls,
+    so the calls run back to back and a kernel shorter than its host-side
+    launch is timed on the device, not at the host's pace."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -311,26 +345,26 @@ def timeline_summary(tl: np.ndarray, n_sms: int, full_warps: int) -> str:
             f"{(last.max() - last.min()) / 1e6:.3f} ms")
 
 
-def shard_march_ms(lib, fn, hcam, eff, sky, reps: int):
-    """Mean ms of each march_planes launch of the sharded frame `fn`, in
-    shard order, by CUDA events around the wrapper (its order-building
-    step included) over `reps` frames."""
-    march_planes, events = lib.march_planes, []
+def shard_launch_ms(lib, name: str, fn, hcam, eff, sky, reps: int):
+    """Mean ms of each `name` launch ("record", "march_planes") of the
+    sharded frame `fn`, in shard order, by CUDA events around the wrapper
+    (the march's order-building step included) over `reps` frames."""
+    launch, events = getattr(lib, name), []
 
-    def timed_march_planes(*args, **kwargs):
+    def timed(*args, **kwargs):
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        march_planes(*args, **kwargs)
+        launch(*args, **kwargs)
         ev[1].record()
         events.append(ev)
 
-    lib.march_planes = timed_march_planes
+    setattr(lib, name, timed)
     try:
         for _ in range(reps):
             fn(hcam, eff, 1.0, sky)
         torch.cuda.synchronize()
     finally:
-        del lib.march_planes
+        delattr(lib, name)
     per = np.array([a.elapsed_time(b) for a, b in events]).reshape(reps, -1)
     return per.mean(axis=0).tolist()
 
@@ -454,36 +488,77 @@ def host_syncs(prof, name: str = "cudaStreamSynchronize") -> int:
     return sum(1 for e in prof.events() if e.name == name)
 
 
-def trace_frame(render, label: str):
+# torch's host ops that gather by index (the profiler records host ops
+# itself; device kernels come from CUPTI's activity records)
+HOST_GATHERS = ("aten::index", "aten::index_select", "aten::gather", "aten::take",
+                "aten::take_along_dim")
+
+
+def trace_frame(render, label: str, lib=None):
     """One warm call of `render` under torch.profiler: (a summary line of
     device time by kernel and device busy time against wall time, the
-    number of cudaStreamSynchronize calls), and writes its Chrome trace
-    as <label>_trace.json in the output directory below."""
+    number of cudaStreamSynchronize calls, device ms by kernel-table name,
+    whether an event recorded right after `render` returned was still
+    pending, the host gather ops by name, and — with `lib` — its launch
+    counts in the traced call), and writes its Chrome trace as
+    <label>_trace.json in the output directory below."""
     from torch.profiler import ProfilerActivity, profile
 
     render()
     torch.cuda.synchronize()
+    if lib is not None:
+        lib.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         render()
+        returned = torch.cuda.Event()
+        returned.record()
+        pending = not returned.query()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
     out = ROOT / "chiprun_out" / f"{label}_trace.json"
     out.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out))
+    launched = None if lib is None else dict(lib.launches)
     syncs = host_syncs(prof)
+    gathers = {n: host_syncs(prof, n) for n in HOST_GATHERS if host_syncs(prof, n)}
     busy, span, by_name, n_events = device_busy(prof)
     if busy is None:
         return (f"phase 7 trace ({label}): frame wall {wall_ms:.3f} ms; the profiler recorded "
-                f"no device events (device time not measured); cudaStreamSynchronize {syncs}",
-                syncs)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+                f"no device events (device time not measured); cudaStreamSynchronize {syncs}; "
+                f"device work pending when the call returned {pending}", syncs, by_name, pending,
+                gathers, launched)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     return (f"phase 7 trace (torch.profiler, one {label} frame): wall {wall_ms:.3f} ms, "
             f"device busy {busy:.3f} ms (idle share "
             f"{1.0 - busy / wall_ms:.3f}), device span "
             f"{span:.3f} ms, {n_events} device events, "
-            f"cudaStreamSynchronize {syncs}; device ms by kernel: "
-            + "; ".join(f"{k} {v:.3f}" for k, v in top)), syncs
+            f"cudaStreamSynchronize {syncs}, cudaMalloc {host_syncs(prof, 'cudaMalloc')} (the "
+            f"caching allocator's growth), device work pending when the call returned "
+            f"{pending}; device ms by kernel: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in top)), syncs, by_name, pending, gathers, launched
+
+
+def streaming_rate(dev, reps: int = 5) -> float:
+    """The card's measured streaming rate, bytes/s: a 1 GiB device-to-
+    device copy (1 GiB read + 1 GiB written) by CUDA events, the L2
+    cleared (256 MiB written) before each; the best of `reps`."""
+    n = 1 << 30
+    src_buf = torch.empty(n, dtype=torch.uint8, device=dev).fill_(1)
+    dst = torch.empty_like(src_buf)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    best = float("inf")
+    for rep in range(reps + 1):  # the first is a warm-up
+        flush.fill_(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src_buf)
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            best = min(best, start.elapsed_time(end))
+    del src_buf, dst, flush
+    return 2.0 * n / (best / 1000.0)
 
 
 def max_sm_mhz() -> float:
@@ -494,16 +569,22 @@ def max_sm_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes):
-    """Phase 10: the probe kernels (csrc/probes.cu) against their plain
-    twins at the tools' own shapes, then the two tools' own runs — their
-    launches are this phase's count — with each op's measured rate beside
-    the spec arithmetic, the SASS class counts of a vacuum step, each
-    frame kernel's measured floor and SASS diagnostic, and
-    take_along_kernel against torch.gather. Returns (table rows of the two
-    probes, {kernel: (floor ms, floor by, SASS ms)})."""
+def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, overflow):
+    """Phase 10: the card's streaming rate, the probe kernels
+    (csrc/probes.cu) against their plain twins at the tools' own shapes,
+    then the two tools' own runs — their launches are this phase's count —
+    with each op's measured rate beside the spec arithmetic, the SASS class
+    counts of a vacuum step, each frame kernel's measured floor and SASS
+    diagnostic, and take_along_kernel against torch.gather. `overflow` is
+    (steps, disk-probe steps, cloud-probe steps, bytes) of the per-ray
+    kernel's forced run. Returns (table rows of the two probes, {kernel:
+    (floor ms, floor by, SASS ms)})."""
     from relativisticraytracer_tpu_torch.tools import roofline as rf
     from relativisticraytracer_tpu_torch.tools import sky_primitives as sp
+
+    rate = streaming_rate(dev)
+    print(f"phase 10 streaming rate: {rate / 1e12:.4f} TB/s (1 GiB device-to-device copy, "
+          f"read + write, L2 cleared, best of 5; spec {PEAK_BYTES / 1e12:.2f})", flush=True)
 
     # kernel vs plain twin at the ceiling's shape, every op (these launches
     # are not counted); the fma pair is the table row's time
@@ -567,18 +648,23 @@ def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes):
         floors[name] = (rf.function_floor_ms(pipe_rates, n_steps, *media), "operations", sass_ms)
         print(f"  SASS {sym}: vacuum step {k['vacuum']} instructions {k['classes']}; shortest "
               f"iteration {k['shortest']} {k['shortest_classes']}")
-    # the replay: its replayed steps and the shading, or its bytes at the spec rate
-    r_ops = rf.function_floor_ms(pipe_rates, n_replay, n_disk, n_cloud)
-    r_bytes = replay_bytes / PEAK_BYTES * 1000.0
-    floors["replay"] = ((r_ops, "operations", None) if r_ops >= r_bytes
-                        else (r_bytes, "bytes", None))
-    floors["sky"] = (None, None, None)  # byte-bound, and no memory rate is measured
+    # the replay and its overflow kernel: their replayed steps and the
+    # shading, or their bytes at the measured rate; sky: its bytes
+    def ops_or_bytes(steps, disk, cloud, nbytes):
+        f_ops = rf.function_floor_ms(pipe_rates, steps, disk, cloud)
+        f_bytes = nbytes / rate * 1000.0
+        return (f_ops, "operations", None) if f_ops >= f_bytes else (f_bytes, "bytes", None)
+
+    floors["replay"] = ops_or_bytes(n_replay, n_disk, n_cloud, replay_bytes)
+    floors["replay_overflow"] = ops_or_bytes(*overflow)
+    floors["sky"] = (sky_bytes / rate * 1000.0, "bytes", None)
     for name, row in sky.items():
         if name.startswith("take_along") and not row["bitwise"]:
             raise AssertionError(f"{name}: the tool's kernel output is not torch.gather's")
     s64 = sky["take_along_S64"]
     print("phase 10 take_along_kernel (t 2040; device ms a call, the L2 cleared before each): "
-          + "; ".join(f"S{s} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, torch.gather "
+          + "; ".join(f"S{s} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}, measured floor "
+                      f"{r['bound_ms'] * PEAK_BYTES / rate:.4f}, torch.gather "
                       f"{r['gather_ms']:.4f}" for s, r in ((s, sky[f"take_along_S{s}"])
                                                            for s in sp.SIZES))
           + f"; launches {launches}", flush=True)
@@ -588,7 +674,8 @@ def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes):
                       library_ms=None),
         "take_along": dict(launches=launches["take_along"], max_abs_err=0.0, ms=s64["ms"],
                            plain_ms=s64["gather_ms"], bound_ms=s64["bound_ms"],
-                           bound_by="bytes", library_ms=s64["gather_ms"]),
+                           bound_by="bytes", library_ms=s64["gather_ms"],
+                           floor_ms=s64["bound_ms"] * PEAK_BYTES / rate, floor_by="bytes"),
     }
     return rows, floors
 
@@ -683,12 +770,24 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
                   f"frame, device idle share {idle}; launches {ran}", flush=True)
             if not same or stats["frames_written"] != n:
                 raise AssertionError(f"{prog} job: frames differ from render_np or missing")
-            want = ({"march_sky"} if prog == "inline"
+            if host_syncs(prof):  # neither frame program waits for the device
+                raise AssertionError(f"{prog} job: {host_syncs(prof)} cudaStreamSynchronize")
+            want = ({"march_sky", "sky"} if prog == "inline"
                     else {"record", "sky"} | set(REPLAY_PASSES))
             if not want <= set(ran):
                 raise AssertionError(f"{prog} job did not run its kernels: {ran}")
         if files["compact"] != files["inline"]:
             raise AssertionError("compact and inline jobs wrote different bytes")
+        # the compact job's replay traffic, frame by frame
+        from relativisticraytracer_tpu_torch.tools.replay_traffic import frame_traffic
+
+        rc = renderers["compact"]
+        jt = [frame_traffic(rc.scene, rc.settings, (k + 1) / fps,
+                            interpolate_path(path, (k + 1) / fps), dev, lib) for k in range(n)]
+        print(f"phase 11 compact job's replay traffic (frame: steps S, steps a pixel, rays past "
+              f"the {jt[0]['capacity']}-entry step list): "
+              + "; ".join(f"{k} {r['steps']} {r['density']:.2f} {r['rays_past']}"
+                          for k, r in enumerate(jt)), flush=True)
 
         # the device->host copy of one frame, pinned and pageable
         r = renderers["compact"]
@@ -735,9 +834,12 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
             pass
         rstats = resumed.run(resume=True)
         same_resume = (tmp / "resumed.rgba").read_bytes() == files["compact"]
-        # two devices (one card twice)
-        dstats = job(r, "devices.rgba").run(resume=False, devices=["cuda:0", "cuda:0"])
+        # two devices (one card twice), traced: a card's frame is dispatched
+        # without waiting for the other's
+        with profiling.trace(str(ROOT / "chiprun_out" / "job_trace_devices")) as prof:
+            dstats = job(r, "devices.rgba").run(resume=False, devices=["cuda:0", "cuda:0"])
         same_devices = (tmp / "devices.rgba").read_bytes() == files["compact"]
+        dev_syncs = host_syncs(prof)
         # a PNG sequence, decoded by the port's reader
         t0 = time.perf_counter()
         job(r, "png/", duration=4 / fps).run(resume=False)
@@ -748,10 +850,13 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
                            .reshape(n, hh, hw, 4)[k]) for k, p in enumerate(pngs))
         print(f"phase 11 resume after 5 frames: resumed at {rstats['resumed_at']}, file "
               f"byte-identical {same_resume}; devices [cuda:0, cuda:0] ({dstats['devices']} "
-              f"devices) byte-identical {same_devices}; PNG sequence of 4 frames "
-              f"({png_s:.2f} s) decoded equal {same_png}", flush=True)
+              f"devices) byte-identical {same_devices}, traced: cudaStreamSynchronize "
+              f"{dev_syncs}, mean_frame_ms {dstats['mean_frame_ms']:.3f}; PNG sequence of 4 "
+              f"frames ({png_s:.2f} s) decoded equal {same_png}", flush=True)
         if not (same_resume and same_devices and same_png):
             raise AssertionError("resume, two-device or PNG job differs from the job's file")
+        if dev_syncs:
+            raise AssertionError(f"two-device job: {dev_syncs} cudaStreamSynchronize")
         if has_ffmpeg:  # the MP4 sink through the machine's ffmpeg
             tvideo.ffmpeg_available = real_ffmpeg_available
             mstats = job(r, "clip.mp4", duration=4 / fps).run(resume=False)
@@ -857,9 +962,7 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--trace", action="store_true",
-                        help="also trace the headline and inline frames with torch.profiler")
-    opts = parser.parse_args()
+    parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
@@ -877,6 +980,7 @@ def main() -> None:
     from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
     from relativisticraytracer_tpu_torch.ops.camera_rays import rays_from_scalars
     from relativisticraytracer_tpu_torch.parallel import sharding
+    from relativisticraytracer_tpu_torch.render import march as march_mod
     from relativisticraytracer_tpu_torch.render.camera import (
         camera_state_from_pose,
         uv_planes,
@@ -891,7 +995,7 @@ def main() -> None:
         sky_coords,
         skybox_from_array,
     )
-    from relativisticraytracer_tpu_torch.tools import roofline
+    from relativisticraytracer_tpu_torch.tools import replay_traffic, roofline
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -915,7 +1019,7 @@ def main() -> None:
             m = re.search(r"function '_Z(\d+)", line)  # the mangled name's identifier
             kernel = line[m.end():m.end() + int(m.group(1))] if m else line.strip()
             flags = re.search(r"ILb(\d)ELb(\d)E", line)
-            if flags:  # the fused march's instance for (has_spin, has_mass_pos)
+            if flags and kernel.startswith("march"):  # the fused march's (has_spin, has_mass_pos)
                 kernel += f"<spin {flags.group(1)}, mass_pos {flags.group(2)}>"
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
@@ -964,7 +1068,7 @@ def main() -> None:
     errs["record"] = fxy_err
 
     order, rsteps = pc.replay_list(rk.total)
-    ik, tk = pc.media_replay(scene, rk.rec, t, order=order, lib=lib, n_steps=rsteps)
+    ik, tk = pc.media_replay_sorted(scene, rk, t, lib=lib)
     ip = torch.zeros((3, h * w), device=dev)
     tp = torch.ones(h * w, device=dev)
     sel = order.long()
@@ -976,12 +1080,26 @@ def main() -> None:
     print(f"phase 3 replay {order.numel()} rays, {rsteps} steps (march, shade, composite "
           f"passes): max |d(I,T)| {errs['replay']:.3g} (rtol 2e-6, atol 5e-7; bitwise "
           f"{bool(torch.equal(got, want))})", flush=True)
+    # the per-ray overflow kernel: a step list of 1 step (every ray past it)
+    # and of half the steps, bitwise the plain replay
+    errs["replay_overflow"] = 0.0
+    for cap in (1, rsteps // 2):
+        plan = pc.replay_plan(rk.total, cap)
+        fi, ft = pc.media_replay_sorted(scene, rk, t, lib=lib, capacity=cap)
+        fgot = torch.stack([fi.x, fi.y, fi.z, ft]).reshape(4, -1)
+        m, m_c = plan.counts[:2].tolist()
+        errs["replay_overflow"] = max(errs["replay_overflow"], (fgot - want).abs().max().item())
+        print(f"phase 3 replay_overflow at capacity {cap}: {m - m_c} of {m} rays past the step "
+              f"list, bitwise the plain replay {bool(torch.equal(fgot, want))}", flush=True)
+        if not torch.equal(fgot, want):
+            raise AssertionError(f"replay at capacity {cap} is not bitwise the plain replay")
 
     head_sky = skybox_from_array(procedural_starfield(2048, 4096, device=dev), dev)
     rng = np.random.default_rng(7)
     sky_err = 0.0
-    for sky_name, sky in (("64x128", small_sky), ("2048x4096", head_sky)):
-        n_side = (256, 512)
+    for (sky_name, sky), n_side in ((s, n) for s in (("64x128", small_sky),
+                                                     ("2048x4096", head_sky))
+                                    for n in ((256, 512), (255, 511))):  # n % 4: 0, 1
         v = rng.standard_normal((3,) + n_side).astype(np.float32)
         v /= np.linalg.norm(v, axis=0, keepdims=True)
         yy, xx = np.meshgrid(np.linspace(-0.4, 0.4, n_side[0]),
@@ -989,23 +1107,27 @@ def main() -> None:
         smooth = normalize(Vec3(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
                                   for a in (xx, yy, np.ones_like(xx)))))
         rand = Vec3(*(torch.as_tensor(a, device=dev) for a in v))
-        masked = torch.as_tensor(rng.random(n_side) < 0.3, device=dev)
+        mask_plane = torch.as_tensor(rng.random(n_side) < 0.3, device=dev)
         for dirs_name, d in (("random", rand), ("smooth", smooth)):
             for e in (effects_off(), CameraEffects(use_chromatic_aberration=1.0,
                                                    ca_amount=0.01)):
                 coords = sky_coords(d, e.ca_offset(), *sky.shape)
                 idx, fx, fy = (torch.stack([c[j] for c in coords]) for j in range(3))
-                bk = ps.sky_background_windowed(sky, idx, fx, fy, e, masked, lib=lib)
-                bp = ps._sky_plain(sky, idx, fx, fy, e, masked)
-                bk = torch.stack(list(bk))
-                if not torch.equal(bk[:, ~masked], bp[:, ~masked]):
-                    raise AssertionError(f"sky kernel not bitwise ({sky_name}, {dirs_name})")
-                if bool((bk[:, masked] != 0).any()):
-                    raise AssertionError("sky kernel wrote a masked pixel")
-                sky_err = max(sky_err, (bk - bp)[:, ~masked].abs().max().item())
+                for masked in (mask_plane, None):
+                    bk = ps.sky_background_windowed(sky, idx, fx, fy, e, masked, lib=lib)
+                    bp = ps._sky_plain(sky, idx, fx, fy, e, masked)
+                    bk = torch.stack(list(bk))
+                    keep = (~masked if masked is not None
+                            else torch.ones(n_side, dtype=torch.bool, device=dev))
+                    if not torch.equal(bk[:, keep], bp[:, keep]):
+                        raise AssertionError(f"sky kernel not bitwise ({sky_name}, {dirs_name}, "
+                                             f"{n_side})")
+                    if bool((bk[:, ~keep] != 0).any()):
+                        raise AssertionError("sky kernel wrote a masked pixel")
+                    sky_err = max(sky_err, (bk - bp)[:, keep].abs().max().item())
     errs["sky"] = sky_err
-    print("phase 3 sky: bitwise on unmasked pixels (2 skies x random/smooth x CA off/on)",
-          flush=True)
+    print("phase 3 sky: bitwise on unmasked pixels (2 skies x n % 4 in {0, 1} x random/smooth "
+          "x CA off/on x mask/no mask)", flush=True)
 
     def march_errs(k, p, with_sky: bool):
         """(hit mismatch, max |d| where hits agree) of a fused march kernel's
@@ -1083,7 +1205,7 @@ def main() -> None:
         if not e < 1e-3:
             raise AssertionError(f"golden {name}: RMSE {e} >= 1e-3")
         vacuum = not (r.scene.enable_disk or r.scene.enable_clouds)
-        want = ["march_sky"] if vacuum else sorted(
+        want = ["march_sky", "sky"] if vacuum else sorted(
             ["record", "sky"] + [k for k in REPLAY_PASSES
                                  if r.scene.enable_clouds or k != "replay_shade_cloud"])
         if ran != want:
@@ -1112,8 +1234,9 @@ def main() -> None:
     frame = renderer.render(hcam, eff, 1.0)
     torch.cuda.synchronize()
     pass_launches = {k: lib.launches[k] for k in REPLAY_PASSES}
-    launches = {"record": lib.launches["record"], "replay": sum(pass_launches.values()),
-                "sky": lib.launches["sky"]}
+    launches = {"record": lib.launches["record"],
+                "replay": sum(v for k, v in pass_launches.items() if k != "replay_overflow"),
+                "replay_overflow": pass_launches["replay_overflow"], "sky": lib.launches["sky"]}
     lat = [sync_ms(lambda i=i: renderer.render(hcam, eff, 1.0 + i / 24.0))[1]
            for i in range(5)]
     _, thr = sync_ms(lambda: [renderer.render(hcam, eff, 10.0 + i / 24.0)
@@ -1128,45 +1251,84 @@ def main() -> None:
     hargs = (scene, hscal, hw, hh, scene.max_steps, pc.SLOTS, *head_sky.shape, dev)
     rec = pc._record_cuda(*hargs, lib)
     horder, hsteps = pc.replay_list(rec.total)
+    hcap = pc.step_capacity(hw * hh, scene.max_steps)
+    hplan = pc.replay_plan(rec.total, hcap)
     masked = rec.hit > 0.5
-    inten, trans = pc.media_replay(scene, rec.rec, 1.0, order=horder, lib=lib,
-                                   n_steps=hsteps)
+    inten, trans = pc._replay(scene, rec.rec, 1.0, hplan, lib)
     bg = ps.sky_background_windowed(head_sky, rec.idx, rec.fx, rec.fy, eff, masked,
                                     lib=lib)
     ms = {
         "record": event_ms(lambda: pc._record_cuda(*hargs, lib)),
-        "replay": event_ms(lambda: pc.media_replay(scene, rec.rec, 1.0, order=horder,
-                                                   lib=lib, n_steps=hsteps)),
+        # the replay's kernels on a built plan (step list and I, T allocated)
+        "replay": event_ms(lambda: pc._replay(scene, rec.rec, 1.0, hplan, lib)),
         "sky": event_ms(lambda: ps.sky_background_windowed(head_sky, rec.idx, rec.fx,
                                                            rec.fy, eff, masked, lib=lib)),
     }
+    plan_ms = event_ms(lambda: pc.replay_plan(rec.total, hcap))
 
     # the replay's passes one by one, on the frame's step list
     consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
-    lengths = pc.step_lengths(rec.rec, horder)
-    offsets = pc.step_offsets(lengths)
-    pos, vel, emit = pc.step_list(hsteps, dev)
+    pos, vel, emit = pc.step_list(hcap, dev)
     i_l, t_l = torch.zeros((3, hh, hw), device=dev), torch.ones((hh, hw), device=dev)
     pass_ms = {
-        "replay_march": event_ms(lambda: lib.replay_march(consts, rec.rec, horder, offsets,
-                                                          pos, vel, stream)),
-        "replay_shade_disk": event_ms(lambda: lib.replay_shade(consts, 1.0, "disk", pos, vel,
-                                                               emit, stream)),
+        "replay_march": event_ms(lambda: lib.replay_march(consts, rec.rec, hplan, pos, vel,
+                                                          stream)),
+        "replay_shade_disk": event_ms(lambda: lib.replay_shade(consts, 1.0, "disk", hplan, pos,
+                                                               vel, emit, stream)),
         # the cloud pass finishes what the disk pass wrote: time the two, less the disk's
         "replay_shade_cloud": event_ms(lambda: (
-            lib.replay_shade(consts, 1.0, "disk", pos, vel, emit, stream),
-            lib.replay_shade(consts, 1.0, "cloud", pos, vel, emit, stream))),
-        "replay_composite": event_ms(lambda: lib.replay_composite(
-            horder, offsets, emit, i_l, t_l, stream)),
+            lib.replay_shade(consts, 1.0, "disk", hplan, pos, vel, emit, stream),
+            lib.replay_shade(consts, 1.0, "cloud", hplan, pos, vel, emit, stream))),
+        "replay_composite": event_ms(lambda: lib.replay_composite(hplan, emit, i_l, t_l,
+                                                                  stream)),
+        # every ray fits: the launch exits at once
+        "replay_overflow": event_ms(lambda: lib.replay_overflow(consts, 1.0, rec.rec, hplan,
+                                                                i_l, t_l, stream)),
     }
     pass_ms["replay_shade_cloud"] -= pass_ms["replay_shade_disk"]
-    list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit)) + offsets.numel() * 8
+    lengths = pc.step_lengths(rec.rec, horder)
+    list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit)) + hplan.offsets.numel() * 8
     seg = rec.rec[:, 6].reshape(pc.SLOTS, -1)
     seg = seg[seg > 0]
     replay_shape = (f"longest ray {int(lengths.max())} steps, longest segment "
                     f"{int(seg.max())}, rays over 1000 steps {int((lengths > 1000).sum())}, "
                     f"segments {seg.numel()}")
-    del pos, vel, emit
+    if hsteps > hcap:
+        raise AssertionError(f"the headline's {hsteps} steps exceed the step list's {hcap}")
+
+    # the per-ray overflow kernel at work: a step list of half the steps
+    half = pc.replay_plan(rec.total, hsteps // 2)
+    m_all, m_half, _, s_half = half.counts.tolist()
+    ov_sel = half.order[m_half:m_all].long()
+    n_ov = hsteps - s_half
+    # the overflow rays' steps are the unforced list's entries s_half.. (the
+    # same order and offsets): their probes size the kernel's bound
+    ov_rel = Vec3(pos[s_half:hsteps, 0], pos[s_half:hsteps, 1], pos[s_half:hsteps, 2])
+    ov_r2 = ov_rel.x * ov_rel.x + ov_rel.y * ov_rel.y + ov_rel.z * ov_rel.z
+    ov_zd, ov_zc = march_mod.media_zones(scene, ov_rel, ov_r2)
+    ov_pd, ov_pc = march_mod.media_probes(scene, ov_rel, ov_zd, ov_zc, torch.ones_like(ov_zd))
+    overflow_work = (n_ov, int(ov_pd.sum()), int(ov_pc.sum()),
+                     ov_sel.numel() * (4 * 7 * pc.SLOTS + 4 + 16))
+    del pos, vel, emit, ov_rel, ov_r2, ov_zd, ov_zc, ov_pd, ov_pc
+    fi, ft = pc._replay(scene, rec.rec, 1.0, half, lib)
+    forced_same = bool(torch.equal(torch.stack(list(fi)), torch.stack(list(inten)))
+                       and torch.equal(ft, trans))
+    ms["replay_overflow"] = event_ms(lambda: lib.replay_overflow(consts, 1.0, rec.rec, half,
+                                                                 i_l, t_l, stream))
+    (ov_i, ov_t), ov_plain_ms = sync_ms(lambda: pc._replay_plain(scene, rec.rec, 1.0, ov_sel))
+    got_ov = torch.cat([torch.stack(list(fi)).reshape(3, -1)[:, ov_sel],
+                        ft.reshape(-1)[ov_sel][None]])
+    want_ov = torch.cat([ov_i, ov_t[None]])
+    errs["replay_overflow"] = max(errs["replay_overflow"],
+                                  (got_ov - want_ov).abs().max().item())
+    print(f"phase 5 replay_overflow at capacity {hsteps // 2} (half the steps): {m_all - m_half} "
+          f"of {m_all} rays, {n_ov} steps past the list; kernel {ms['replay_overflow']:.3f} ms, "
+          f"plain {ov_plain_ms:.1f} ms; frame's (I, T) bitwise the unforced replay's "
+          f"{forced_same}, the overflow rays bitwise the plain replay "
+          f"{bool(torch.equal(got_ov, want_ov))}; on the main path (every ray fits) its launch "
+          f"{pass_ms['replay_overflow']:.4f} ms", flush=True)
+    if not (forced_same and torch.equal(got_ov, want_ov)):
+        raise AssertionError("the per-ray overflow kernel is not bitwise")
 
     # the same frame through the plain versions, on the card, stage by stage
     t_start = time.perf_counter()
@@ -1186,7 +1348,8 @@ def main() -> None:
     plain = pack_rgba8(apply_effects_and_tonemap(hdr, uvx, uvy, eff, scene.exposure))
     torch.cuda.synchronize()
     plain_frame_ms = (time.perf_counter() - t_start) * 1000.0
-    plain_ms = {"record": plain_ms_rec, "replay": plain_ms_rep, "sky": plain_ms_sky}
+    plain_ms = {"record": plain_ms_rec, "replay": plain_ms_rep, "sky": plain_ms_sky,
+                "replay_overflow": ov_plain_ms}
 
     head_hit_mis = (masked_p != masked).float().mean().item()
     same = ~(masked_p ^ masked)
@@ -1203,20 +1366,23 @@ def main() -> None:
           f"{[round(x, 3) for x in lat]} ms, throughput {thr:.3f} ms/frame; "
           f"plain path {plain_frame_ms:.0f} ms; RMSE kernels vs plain {head_rmse:.3g}; "
           f"record hit mismatch {head_hit_mis:.2e}; replayed rays {horder.numel()}; "
-          f"launches {launches} (replay passes {pass_launches}); peak {peak / 2**20:.0f} MiB",
+          f"launches {launches} (replay kernels {pass_launches}); peak {peak / 2**20:.0f} MiB",
           flush=True)
     for name in launches:
         print(f"  {name}: kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.1f} ms")
-    print(f"  replay passes (CUDA events): " + ", ".join(f"{k} {v:.3f} ms"
-                                                      for k, v in pass_ms.items())
-          + f"; step list {hsteps} steps, {list_bytes / 2**20:.1f} MiB; {replay_shape}",
-          flush=True)
+    print(f"  replay bookkeeping on the device (replay_plan: sort of {hw * hh} keys, offsets, "
+          f"counts): {plan_ms:.3f} ms; replay kernels (CUDA events): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pass_ms.items())
+          + f"; step list: capacity {hcap} entries, {list_bytes / 2**20:.1f} MiB, holding "
+          f"{hsteps} steps; {replay_shape}", flush=True)
     if not ok_frame:
         raise AssertionError(f"bad frame {frame_np.shape} {frame_np.dtype}")
     if not head_rmse < 1e-3:
         raise AssertionError(f"headline frame vs plain path: RMSE {head_rmse}")
     if min(launches.values()) < 1 or min(pass_launches.values()) < 1:
         raise AssertionError(f"a kernel of the frame path never launched: {lib.launches}")
+    if launches["replay_overflow"] != 1 or launches["sky"] != 1:
+        raise AssertionError(f"the compact frame's per-frame kernels: {lib.launches}")
 
     # the inline frame (march_sky), against the compact frame
     inline_settings = RenderSettings(width=hw, height=hh, media_pass="inline")
@@ -1227,6 +1393,7 @@ def main() -> None:
     inline_frame = inline.render(hcam, eff, 1.0)
     torch.cuda.synchronize()
     launches["march_sky"] = lib.launches["march_sky"]
+    inline_sky_launches = lib.launches["sky"]
     inline_np = inline_frame.cpu().numpy()
     lat_i = [sync_ms(lambda i=i: inline.render(hcam, eff, 1.0 + i / 24.0))[1]
              for i in range(5)]
@@ -1236,7 +1403,7 @@ def main() -> None:
           f"{[round(x, 3) for x in lat_i]} ms, throughput {thr_i / 5:.3f} ms/frame; RMSE vs "
           f"compact frame {inline_rmse:.3g} (bitwise {np.array_equal(inline_np, frame_np)}); "
           f"launches {lib.launches}", flush=True)
-    if not (inline_rmse < 1e-3 and launches["march_sky"] >= 1):
+    if not (inline_rmse < 1e-3 and launches["march_sky"] >= 1 and inline_sky_launches == 1):
         raise AssertionError(f"inline headline frame: RMSE {inline_rmse}, {lib.launches}")
 
     # the no-sky frame (march_camera)
@@ -1267,6 +1434,9 @@ def main() -> None:
         scene, hscal, hw, hh, steps_h, dev, lib))
     ms["march_planes"] = event_ms(lambda: pm._march_planes_cuda(scene, ho, hd, 1.0, steps_h,
                                                                 lib))
+    # the inline frame's background: the sky kernel without a mask
+    ms_sky_inline = event_ms(lambda: ps.sky_background_windowed(head_sky, k4[2], k4[3], k4[4],
+                                                                eff, lib=lib))
     # the same trajectories with no medium (the step sizes follow the zones
     # alone): the difference is what the inline shading costs
     vacuum = dataclasses.replace(scene, enable_disk=False, enable_clouds=False)
@@ -1295,7 +1465,8 @@ def main() -> None:
         plain_ms[name] = plain_march_ms
     print(f"phase 5 fused march at {hw}x{hh}: march_sky {ms['march_sky']:.3f} ms, "
           f"march_camera {ms['march_camera']:.3f} ms, march_planes {ms['march_planes']:.3f} ms "
-          f"(CUDA events); march_sky with no medium (the same trajectories) {ms_vacuum:.3f} "
+          f"(CUDA events); the inline frame's sky kernel (no mask) {ms_sky_inline:.4f} ms; "
+          f"march_sky with no medium (the same trajectories) {ms_vacuum:.3f} "
           f"ms, so the inline shading costs {ms['march_sky'] - ms_vacuum:.3f} ms; (I, T) of the "
           f"three equal {same_it}; plain march "
           f"{plain_march_ms:.1f} ms with {n_steps} ray-steps "
@@ -1307,13 +1478,20 @@ def main() -> None:
 
     # bounds: the larger of fp32 ops at 67 TFLOP/s and bytes at 3.35 TB/s
     npx = hw * hh
+    # sky: per pixel 12 bytes of G-plane coordinates, a mask byte and 12 of
+    # colour; each 16-byte quad the unmasked pixels touch, once (neighbouring
+    # escape directions share quads)
+    n_quads = int(torch.unique(rec.idx[1][~masked]).numel())
+    sky_bytes = npx * (13 + 12) + n_quads * 16
     n_replay = float(rec.total.sum())
     shade_ops = n_disk * DISK_OPS + n_cloud * CLOUD_OPS
     bounds = {
         "record": bound(n_steps * VAC_OPS, npx * 4 * (11 + 7 * pc.SLOTS + 1)),
         "replay": bound(n_replay * VAC_OPS + shade_ops,
                         horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16)),
-        "sky": bound(npx * 36, npx * (13 + 12) + int((~masked).sum()) * 16),
+        "sky": bound(npx * 36, sky_bytes),
+        "replay_overflow": bound(overflow_work[0] * VAC_OPS + overflow_work[1] * DISK_OPS
+                                 + overflow_work[2] * CLOUD_OPS, overflow_work[3]),
         "march_sky": bound(n_steps * VAC_OPS + shade_ops, npx * 52),
         "march_camera": bound(n_steps * VAC_OPS + shade_ops, npx * 32),
         "march_planes": bound(n_steps * VAC_OPS + shade_ops, npx * (24 + 32)),
@@ -1321,6 +1499,23 @@ def main() -> None:
     for name, (b_ms, b_by) in bounds.items():
         print(f"  {name}: kernel {ms[name]:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
               f"plain {plain_ms[name]:.1f} ms")
+    print(f"  sky bytes: {npx} pixels x 25 B, {n_quads} distinct quads x 16 B", flush=True)
+
+    # the replay's traffic on the default paths, each second, at the cinema,
+    # native and realtime sizes: steps a pixel, the frames past the step
+    # list, and their replay bitwise a list that holds every step
+    t0 = time.perf_counter()
+    traffic = replay_traffic.survey(every=1.0, lib=lib)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "replay_traffic.json").write_text(
+        json.dumps(dict(device=kind, power=smi, every=1.0, rows=traffic), indent=1))
+    print(f"phase 5 replay traffic ({len(traffic)} frames, {time.perf_counter() - t0:.1f} s; "
+          f"step list {pc.STEPS_PER_PIXEL} entries a pixel; chiprun_out/replay_traffic.json):",
+          flush=True)
+    for line in replay_traffic.summary(traffic):
+        print("  " + line, flush=True)
+    if not all(r["bitwise"] for r in traffic):
+        raise AssertionError("a replay past the step list differs from the fitting list's")
 
     # ---- phase 6: FMA contraction A/B
     t0 = time.perf_counter()
@@ -1358,9 +1553,19 @@ def main() -> None:
         equal = np.array_equal(tiled, whole_np)
         kernel_ms = ""
         if label == "inline":  # each shard's march_planes launch, by CUDA events
-            per_launch = shard_march_ms(lib, fn, hcam, eff, head_sky, reps=3)
+            per_launch = shard_launch_ms(lib, "march_planes", fn, hcam, eff, head_sky, reps=3)
             kernel_ms = (f"; march_planes per launch {[round(x, 3) for x in per_launch]} ms "
                          f"(sum {sum(per_launch):.3f})")
+        else:  # each shard's record launch; the grid enqueued without a host sync
+            shard_record_ms = shard_launch_ms(lib, "record", fn, hcam, eff, head_sky, reps=3)
+            line, grid_syncs, _, grid_pending, _, _ = trace_frame(
+                lambda: fn(hcam, eff, 1.0, head_sky), "shards_compact")
+            kernel_ms = (f"; record per launch {[round(x, 3) for x in shard_record_ms]} ms "
+                         f"(sum {sum(shard_record_ms):.3f}, one full-frame record "
+                         f"{ms['record']:.3f}); traced grid: cudaStreamSynchronize {grid_syncs}, "
+                         f"device work pending when the grid returned {grid_pending}")
+            if grid_syncs:
+                raise AssertionError(f"compact shard grid: {grid_syncs} cudaStreamSynchronize")
         print(f"phase 8 shards 4x2 on one card ({label}; shards run one after another on "
               f"{kind}): bitwise the single-device frame {equal}; shard ms "
               f"{[round(x, 3) for x in shard_ms]} (max {max(shard_ms):.3f}, sum "
@@ -1416,24 +1621,48 @@ def main() -> None:
 
     order_ab(lib, scene, hscal, ho, hd, head_sky, per_ray_all, steps_h, dev)
 
-    if opts.trace:
-        line, syncs = trace_frame(lambda: renderer.render(hcam, eff, 1.0), "headline")
-        print(line, flush=True)
-        print(trace_frame(lambda: inline.render(hcam, eff, 1.0), "inline")[0], flush=True)
-        if syncs != 1:
-            raise AssertionError(f"compact frame: {syncs} cudaStreamSynchronize, expected 1")
+    # ---- phase 7: one compact and one inline frame under torch.profiler
+    line, syncs, compact_names, pending, _, _ = trace_frame(
+        lambda: renderer.render(hcam, eff, 1.0), "headline")
+    print(line, flush=True)
+    line, _, inline_names, _, inline_ops, inline_launches = trace_frame(
+        lambda: inline.render(hcam, eff, 1.0), "inline", lib)
+    print(line, flush=True)
+    if not compact_names or not inline_names:  # the checks below read the device events
+        raise AssertionError("phase 7: the profiler recorded no device events")
+    if syncs != 0 or not pending:
+        raise AssertionError(f"compact frame: {syncs} cudaStreamSynchronize, device work "
+                             f"pending when render returned {pending}")
+    # torch's gathers: advanced indexing and index_select / gather, as device
+    # kernels and as host ops. The traced frame's sky launch is read from the
+    # wrapper's count: CUPTI's record of a kernel is not guaranteed to reach
+    # the trace, the count is made where the kernel is launched.
+    torch_gathers = [k for k in inline_names
+                     if any(s in k.lower() for s in ("index_elementwise", "indexselect", "gather"))]
+    print(f"phase 7 inline frame: sky launches {inline_launches['sky']} (count), sky in the "
+          f"device trace {'sky' in inline_names}; torch gathers on the device {torch_gathers}, "
+          f"as host ops {inline_ops}", flush=True)
+    if torch_gathers or inline_ops or inline_launches["sky"] != 1:
+        raise AssertionError(f"inline frame: sky launches {inline_launches['sky']}, torch "
+                             f"gathers {torch_gathers} {inline_ops}; device trace "
+                             f"{sorted(inline_names)}")
 
     # ---- phase 10: the probes, and each frame kernel's measured floor
     t_phase = time.perf_counter()
     probe_rows, floors = phase10_probes(
         lib, dev, n_sms, (n_steps, n_disk, n_cloud), n_replay,
-        horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16))
+        horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16), sky_bytes, overflow_work)
     for name, (f_ms, f_by, sass_ms) in floors.items():
-        floor = ("no measured floor (byte-bound; no memory rate is measured)" if f_ms is None else
-                 f"measured floor {f_ms:.3f} ms ({f_by}; kernel at {f_ms / ms[name]:.3f} of it)")
+        floor = f"measured floor {f_ms:.4f} ms ({f_by}; kernel at {f_ms / ms[name]:.3f} of it)"
         diag = "" if sass_ms is None else f", SASS shortest-iteration time {sass_ms:.3f} ms"
-        print(f"  {name}: kernel {ms[name]:.3f} ms, {floor}{diag}, 67e12 bound "
-              f"{bounds[name][0]:.3f} ms ({bounds[name][1]})", flush=True)
+        print(f"  {name}: kernel {ms[name]:.4f} ms, {floor}{diag}, 67e12 bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
+    # the compact shard grid's 8 record launches do the full-frame record's work
+    rec_floor = floors["record"][0]
+    print(f"  compact shard grid: 8 record launches {sum(shard_record_ms):.3f} ms against the "
+          f"frame's record floor {rec_floor:.3f} ms ({rec_floor / sum(shard_record_ms):.3f} of "
+          f"it); launches x (time - floor) {sum(shard_record_ms) - rec_floor:.3f} ms",
+          flush=True)
 
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -1450,6 +1679,8 @@ def main() -> None:
                        floor_ms=floors[name][0], floor_by=floors[name][1],
                        sass_floor_ms=floors[name][2])
             for name in floors}
+    rows["replay_overflow"]["main_path_ms"] = pass_ms["replay_overflow"]
+    rows["sky"]["inline_ms"] = ms_sky_inline
     rows.update(probe_rows)
     table = {"kernels": [dict(name=name, route="cuda", source=src, replaces=rep, **rows[name])
                          for name, (src, rep, _) in KERNELS.items()]}

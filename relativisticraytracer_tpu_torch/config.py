@@ -179,9 +179,11 @@ class RenderSettings:
     Field for field the JAX package's settings. In the port `loop`,
     `chunk`, `media_capacity` and `sky_gather` are accepted and validated
     but select nothing: the renderer's device picks kernels or plain
-    versions, the replay's compaction has dynamic shapes, and the sky is a
-    direct per-pixel gather. `media_pass` picks the frame program:
-    "compact" (record + replay) or "inline" (the fused march)."""
+    versions, the replay's step list is sized per pixel of the frame
+    (ops/pallas_compact.step_capacity; rays past it are replayed per ray,
+    with the same result), and the sky is a direct per-pixel gather.
+    `media_pass` picks the frame program: "compact" (record + replay) or
+    "inline" (the fused march)."""
 
     width: int = WINDOW_WIDTH
     height: int = WINDOW_HEIGHT

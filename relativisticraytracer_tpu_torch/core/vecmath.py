@@ -45,6 +45,16 @@ def vec3(x, y, z, device=None) -> Vec3:
                   for c in (x, y, z)))
 
 
+def from_array(a: Tensor) -> Vec3:
+    """[..., 3] tensor -> Vec3 (API boundary only; never in the hot path)."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_array(v: Vec3) -> Tensor:
+    """Vec3 -> [..., 3] tensor (API boundary only)."""
+    return torch.stack([v.x, v.y, v.z], dim=-1)
+
+
 def dot(a: Vec3, b: Vec3) -> Tensor:
     """reference: math_utils.h:11-13"""
     return a.x * b.x + a.y * b.y + a.z * b.z

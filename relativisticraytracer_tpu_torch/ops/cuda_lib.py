@@ -54,7 +54,10 @@ from relativisticraytracer_tpu_torch.media.densities import (
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("record.cu", "replay.cu", "sky.cu", "march.cu", "probes.cu")
-HEADERS = ("march_common.cuh",)
+HEADERS = ("march_common.cuh", "launch.cuh")
+# A launcher's return when it had no work and launched nothing
+# (csrc/launch.cuh RRT_NOT_LAUNCHED).
+NOT_LAUNCHED = -1
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # The fp64 instructions of the math library's sinf/cosf slow path (see the
@@ -314,9 +317,11 @@ def order_from_keys(keys: torch.Tensor) -> torch.Tensor:
     return torch.argsort(expensive.to(torch.int32), descending=True, stable=True).to(torch.int32)
 
 
-# The replay's passes (csrc/replay.cu): march, disk and cloud shading,
-# compositing; each launch counts under its own name.
-REPLAY_PASSES = ("replay_march", "replay_shade_disk", "replay_shade_cloud", "replay_composite")
+# The replay's kernels (csrc/replay.cu): march, disk and cloud shading,
+# compositing, and the per-ray replay of the rays past the step list's
+# capacity; each launch counts under its own name.
+REPLAY_PASSES = ("replay_march", "replay_shade_disk", "replay_shade_cloud", "replay_composite",
+                 "replay_overflow")
 # The measurement probes (csrc/probes.cu): tools/roofline.py's op chains and
 # tools/sky_primitives.py's block-resident gather.
 PROBES = ("chain", "take_along")
@@ -401,10 +406,11 @@ class KernelLibrary:
             "scene_consts_size": [],
             "ray_grid_size": [],
             "record": [sc, cam, ctypes.POINTER(RayGrid)] + [ci] * 6 + [vp] * 7,
-            "replay_march": [sc, ci, ci, ci] + [vp] * 6,
-            "replay_shade": [sc, cf, ci, cl] + [vp] * 4,
-            "replay_composite": [ci, ci, cl] + [vp] * 6,
-            "sky": [ci, ci] + [vp] * 10,
+            "replay_march": [sc, ci, ci, ci] + [vp] * 7,
+            "replay_shade": [sc, cf, ci, cl] + [vp] * 5,
+            "replay_composite": [ci, ci] + [vp] * 7,
+            "replay_overflow": [sc, cf, ci, ci, ci] + [vp] * 6,
+            "sky": [cl, ci] + [vp] * 10,
             "march_sky": [sc, cam] + [ci] * 5 + [vp] * 7,
             "march_camera": [sc, cam] + [ci] * 3 + [vp] * 6,
             "march_planes": [sc, cf] + [ci] * 3 + [vp] * 7,
@@ -425,6 +431,11 @@ class KernelLibrary:
         self.launches = dict.fromkeys(KERNELS, 0)
 
     def _launched(self, name: str, err: int) -> None:
+        """Counts a launch the C launcher made (err 0); raises on a CUDA
+        error; a launcher that had no work returns NOT_LAUNCHED and counts
+        nothing."""
+        if err == NOT_LAUNCHED:
+            return
         if err != 0:
             raise RuntimeError(f"CUDA error {err} launching the {name} kernel")
         self.launches[name] += 1
@@ -446,72 +457,91 @@ class KernelLibrary:
                 fx.data_ptr(), fy.data_ptr(), rec.data_ptr(), total.data_ptr(), stream)
         self._launched("record", err)
 
-    def replay_march(self, consts, rec, order, offsets, pos, vel, stream) -> None:
-        """Pass 1: each recorded segment of the listed rays -> its steps'
-        PRE-step rel and POST-step v, `pos` [S, 4] (rel, v.x) and `vel`
-        [S, 2] (v.y, v.z), from its ray's offset (int64 exclusive prefix
-        sums) on."""
+    def replay_march(self, consts, rec, plan, pos, vel, stream) -> None:
+        """Pass 1: each recorded segment of the rays in the step list (the
+        first m_c of `plan`, ops/pallas_compact.ReplayPlan) -> its steps'
+        PRE-step rel and POST-step v, `pos` [C, 4] (rel, v.x) and `vel`
+        [C, 2] (v.y, v.z), from its ray's offset on."""
         slots, _, h, w = rec.shape
-        m, n_steps = order.numel(), pos.shape[0]
-        check("replay_march", [(rec, torch.float32, (slots, 7, h, w)),
-                               (order, torch.int32, (m,)), (offsets, torch.int64, (m,)),
-                               (pos, torch.float32, (n_steps, 4)),
-                               (vel, torch.float32, (n_steps, 2))])
+        rays, cap = plan.order.numel(), pos.shape[0]
+        check("replay_march", [(rec, torch.float32, (slots, 7, h, w))] + _plan_specs(plan)
+              + [(pos, torch.float32, (cap, 4)), (vel, torch.float32, (cap, 2))])
         with torch.cuda.device(rec.device):
             err = self._lib.rrt_replay_march(
-                ctypes.byref(consts), h * w, m, slots, rec.data_ptr(), order.data_ptr(),
-                offsets.data_ptr(), pos.data_ptr(), vel.data_ptr(), stream)
+                ctypes.byref(consts), h * w, rays, slots, plan.counts.data_ptr(), rec.data_ptr(),
+                plan.order.data_ptr(), plan.offsets.data_ptr(), pos.data_ptr(), vel.data_ptr(),
+                stream)
         self._launched("replay_march", err)
 
-    def replay_shade(self, consts, time, medium, pos, vel, emit, stream) -> None:
-        """Pass 2, one thread per step: medium "disk" writes every step's
-        (r, g, b, transmittance) to `emit` [S, 4] (the opacity in place of
-        the transmittance on cloud-probe steps); "cloud" then adds its
-        terms to those steps and writes their transmittance."""
-        n_steps = pos.shape[0]
-        check(f"replay_shade_{medium}", [(pos, torch.float32, (n_steps, 4)),
-                                         (vel, torch.float32, (n_steps, 2)),
-                                         (emit, torch.float32, (n_steps, 4))])
+    def replay_shade(self, consts, time, medium, plan, pos, vel, emit, stream) -> None:
+        """Pass 2, one thread per entry of the step list (those past the
+        plan's S_c return at once): medium "disk" writes each step's (r, g,
+        b, transmittance) to `emit` [C, 4] (the opacity in place of the
+        transmittance on cloud-probe steps); "cloud" then adds its terms to
+        those steps and writes their transmittance."""
+        cap = pos.shape[0]
+        check(f"replay_shade_{medium}", [(plan.counts, torch.int64, (4,)),
+                                         (pos, torch.float32, (cap, 4)),
+                                         (vel, torch.float32, (cap, 2)),
+                                         (emit, torch.float32, (cap, 4))])
         with torch.cuda.device(pos.device):
             err = self._lib.rrt_replay_shade(
-                ctypes.byref(consts), time, ("disk", "cloud").index(medium), n_steps,
-                pos.data_ptr(), vel.data_ptr(), emit.data_ptr(), stream)
+                ctypes.byref(consts), time, ("disk", "cloud").index(medium), cap,
+                plan.counts.data_ptr(), pos.data_ptr(), vel.data_ptr(), emit.data_ptr(), stream)
         self._launched(f"replay_shade_{medium}", err)
 
-    def replay_composite(self, order, offsets, emit, intensity, trans, stream) -> None:
-        """Pass 3: each listed ray composites its steps in order and writes
-        I and T to its pixel of `intensity` [3, H, W] and `trans` [H, W]."""
+    def replay_composite(self, plan, emit, intensity, trans, stream) -> None:
+        """Pass 3: each ray of the step list composites its steps in order
+        and writes I and T to its pixel of `intensity` [3, H, W] and `trans`
+        [H, W]."""
         h, w = trans.shape
-        m, n_steps = order.numel(), emit.shape[0]
-        check("replay_composite", [(order, torch.int32, (m,)), (offsets, torch.int64, (m,)),
-                                   (emit, torch.float32, (n_steps, 4)),
-                                   (intensity, torch.float32, (3, h, w)),
-                                   (trans, torch.float32, (h, w))])
+        check("replay_composite", _plan_specs(plan)
+              + [(emit, torch.float32, (emit.shape[0], 4)),
+                 (intensity, torch.float32, (3, h, w)), (trans, torch.float32, (h, w))])
         with torch.cuda.device(trans.device):
             err = self._lib.rrt_replay_composite(
-                h * w, m, n_steps, order.data_ptr(), offsets.data_ptr(), emit.data_ptr(),
-                intensity.data_ptr(), trans.data_ptr(), stream)
+                h * w, plan.order.numel(), plan.counts.data_ptr(), plan.order.data_ptr(),
+                plan.offsets.data_ptr(), emit.data_ptr(), intensity.data_ptr(),
+                trans.data_ptr(), stream)
         self._launched("replay_composite", err)
 
+    def replay_overflow(self, consts, time, rec, plan, intensity, trans, stream) -> None:
+        """The listed rays past the step list's capacity (m_c <= j < m of
+        `plan`), one thread per ray: march, shade and composite inline in
+        the passes' order; writes their I and T. Launched every frame; it
+        exits at once where every ray fits."""
+        slots, _, h, w = rec.shape
+        check("replay_overflow", [(rec, torch.float32, (slots, 7, h, w))] + _plan_specs(plan)
+              + [(intensity, torch.float32, (3, h, w)), (trans, torch.float32, (h, w))])
+        with torch.cuda.device(rec.device):
+            err = self._lib.rrt_replay_overflow(
+                ctypes.byref(consts), time, h * w, plan.order.numel(), slots,
+                plan.counts.data_ptr(), rec.data_ptr(), plan.order.data_ptr(),
+                intensity.data_ptr(), trans.data_ptr(), stream)
+        self._launched("replay_overflow", err)
+
     def sky(self, use_q4, idx, fx, fy, masked, qr, qg, qb, q4, bg, stream) -> None:
-        shape = tuple(masked.shape)
-        n = masked.numel()
+        """Each pixel's background from its quads (csrc/sky.cu); `masked`
+        (bool [H, W]) or None: masked pixels get 0."""
+        shape = tuple(bg.shape[1:])
+        n = bg[0].numel()
         hq_w = tuple(qr.shape)
         planes = [(idx, torch.int32, (3,) + shape),
                   (fx, torch.float32, (3,) + shape),
                   (fy, torch.float32, (3,) + shape),
-                  (masked, torch.bool, shape),
                   (qr, torch.int32, hq_w), (qg, torch.int32, hq_w),
                   (qb, torch.int32, hq_w),
                   (bg, torch.float32, (3,) + shape)]
+        if masked is not None:
+            planes.append((masked, torch.bool, shape))
         if use_q4:
             planes.append((q4, torch.int32, (hq_w[0] * hq_w[1], 4)))
         check("sky", planes)
         with torch.cuda.device(bg.device):
             err = self._lib.rrt_sky(
                 n, int(use_q4), idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-                masked.data_ptr(), qr.data_ptr(), qg.data_ptr(), qb.data_ptr(),
-                q4.data_ptr() if use_q4 else None, bg.data_ptr(), stream)
+                None if masked is None else masked.data_ptr(), qr.data_ptr(), qg.data_ptr(),
+                qb.data_ptr(), q4.data_ptr() if use_q4 else None, bg.data_ptr(), stream)
         self._launched("sky", err)
 
     def tile_keys(self, consts, cam, rays, width, height, max_steps, stream) -> torch.Tensor:
@@ -640,6 +670,14 @@ class KernelLibrary:
             err = self._lib.rrt_set_timeline(buf.data_ptr())
         if err != 0:
             raise RuntimeError(f"CUDA error {err} setting the march timeline buffer")
+
+
+def _plan_specs(plan):
+    """Check specs of a replay plan (ops/pallas_compact.ReplayPlan): order
+    int32 and offsets int64 of one length, counts int64 [4]."""
+    rays = plan.order.numel()
+    return [(plan.order, torch.int32, (rays,)), (plan.offsets, torch.int64, (rays,)),
+            (plan.counts, torch.int64, (4,))]
 
 
 def _state_specs(shape, intensity, trans, hit, vel):

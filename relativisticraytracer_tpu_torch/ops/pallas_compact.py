@@ -22,14 +22,19 @@ emission and zero opacity wherever they are False. So the march splits:
      post-step v), shade (one thread per step: disk, then cloud, the last
      one also the step's transmittance) and composite (one thread per ray,
      its steps in order). A ray's offset into the list is the exclusive
-     prefix sum of the listed rays' lengths (`step_offsets`).
+     prefix sum of the listed rays' lengths (`step_offsets`). The list
+     order, the offsets and the counts are built on the device
+     (`replay_plan`), and the list is allocated at a capacity fixed on the
+     host (`step_capacity`): no launch waits for the device. The rays past
+     the capacity are replayed by a per-ray kernel, so the frame is exact
+     for every pose.
 
 Each pass has a hand-written CUDA kernel (csrc/record.cu, csrc/replay.cu)
-and its plain PyTorch version (`_record_plain`, `_replay_plain`). The
-wrapper launches the kernel for CUDA tensors and runs the plain version for
-CPU tensors; nothing else picks. The replay's three passes also have plain
-twins (`_replay_passes_plain`), which run the step-list bookkeeping on the
-CPU.
+and its plain PyTorch version (`_record_plain`, `_replay_plain`, which is
+also the twin of the per-ray overflow kernel). The wrapper launches the
+kernel for CUDA tensors and runs the plain version for CPU tensors; nothing
+else picks. The replay's three passes also have plain twins
+(`_replay_passes_plain`), which run the step-list layout on the CPU.
 
 The final frame is  hdr = I_B + bg * (0 if captured else T_B)
 (raymarcher.cu:123-150), composited in `_compact_tile_rgba`.
@@ -321,25 +326,76 @@ def _replay_plain_sorted(scene: SceneConfig, rec: torch.Tensor, time,
     return inten, trans
 
 
-def replay_list(total: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(order, n_steps): the rays to replay, longest replay first (int32
-    flat pixel indices of total > 0, sorted by total length descending,
-    ties in pixel order), and the sum of their lengths, the size of the
-    replay's step list. Takes the place of the JAX package's row
-    compaction and static `media_capacity` buffer
-    (pallas_compact.py:674-744).
+# Replay lengths are integers below 2^24 (exact in float32): the order key's
+# length field.
+_LEN_LIMIT = 1 << 24
+# Step-list entries per pixel of the frame. On the three default camera
+# paths, sampled each second, a frame's replay needs 5.4 to 399 steps a
+# pixel (medians 20, 38 and 71 at 1080p; the headline pose 10.3), and the
+# presets' frames as many (tools/replay_traffic.py, PERF.md). 64 holds
+# every 1080p frame of the Event Horizon Focus path and all but 3 of the
+# Fly-By's, at 40 B a step 5.3 GB at 1080p; the rest send their tail to
+# the per-ray kernel, which on those frames takes a median ~1.9x the
+# passes' ~0.16 ms per million steps (H100).
+STEPS_PER_PIXEL = 64
 
-    `nonzero` waits for the device; it is the only wait. The sum is copied
-    to pinned host memory before it on the same stream, so it has arrived
-    when `nonzero` returns and reading it waits for nothing."""
+
+class ReplayPlan(NamedTuple):
+    """The replay's bookkeeping, built on the device (`replay_plan`)."""
+
+    order: torch.Tensor    # int32 [L] flat pixels, the listed rays first
+    offsets: torch.Tensor  # int64 [L] each ray's first entry in the step list
+    # int64 [4] on the device: m listed rays, m_c of them in the step list
+    # (a prefix), S steps of the listed rays, S_c of them in the step list
+    counts: torch.Tensor
+    capacity: int          # entries of the step list
+
+
+def step_capacity(pixels: int, max_steps: Optional[int] = None) -> int:
+    """Entries of the replay's step list for a frame of `pixels` rays:
+    STEPS_PER_PIXEL a pixel, at most `max_steps` a pixel (a ray replays at
+    most max_steps). Fixed on the host, so the list is allocated without a
+    host sync; the rays past it take the per-ray kernel."""
+    per_pixel = STEPS_PER_PIXEL if max_steps is None else min(STEPS_PER_PIXEL, max_steps)
+    return max(pixels * per_pixel, 1)
+
+
+def replay_plan(total: torch.Tensor, capacity: int,
+                order: Optional[torch.Tensor] = None) -> ReplayPlan:
+    """The replay's list, on `total`'s device without a host sync.
+
+    `order` None: every pixel, longest replay first, ties in pixel order —
+    the sort key (2^24 - length) * N + pixel is unique, so the order does
+    not depend on the sort being stable — and the rays with a replay
+    (length > 0) are the m listed ones; the rest follow with length 0.
+    Otherwise `order` (int32 flat pixels) is the list and every entry is
+    listed. Offsets are the exclusive prefix sums of the lengths along the
+    list; the rays whose steps end within `capacity` are a prefix of it."""
     flat = total.reshape(-1)
-    n_steps = flat.to(torch.int64).sum()  # lengths are integers: exact
-    if flat.is_cuda:
-        host = torch.empty((), dtype=torch.int64, pin_memory=True)
-        n_steps = host.copy_(n_steps, non_blocking=True)
-    idx = torch.nonzero(flat > 0.0).squeeze(1)
-    order = torch.argsort(flat[idx], descending=True, stable=True)
-    return idx[order].to(torch.int32), int(n_steps)
+    lengths = flat.to(torch.int64)  # integers below 2^24: exact
+    if order is None:
+        n = flat.numel()
+        key = (_LEN_LIMIT - lengths) * n + torch.arange(n, device=flat.device)
+        order = torch.argsort(key)
+        listed = (lengths > 0).sum()
+    else:
+        order = order.long()
+        listed = torch.full((), order.numel(), dtype=torch.int64, device=flat.device)
+    lengths = lengths[order]
+    offsets = step_offsets(lengths)
+    fits = offsets + lengths <= capacity
+    counts = torch.stack([listed, torch.minimum(listed, fits.sum()), lengths.sum(),
+                          torch.where(fits, lengths, 0).sum()])
+    return ReplayPlan(order.to(torch.int32), offsets, counts, capacity)
+
+
+def replay_list(total: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(order, n_steps) of `replay_plan`'s sorted list read on the host:
+    the m listed rays (int32, longest first) and their steps. It waits for
+    the device, so the frame path never calls it."""
+    plan = replay_plan(total, 1)
+    m, _, n_steps, _ = plan.counts.tolist()
+    return plan.order[:m], n_steps
 
 
 def replay_order(total: torch.Tensor) -> torch.Tensor:
@@ -360,29 +416,23 @@ def step_offsets(lengths: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(lengths, 0) - lengths
 
 
-def _replay_cuda(scene: SceneConfig, rec: torch.Tensor, time, order: torch.Tensor,
-                 n_steps: Optional[int], lib):
-    """csrc/replay.cu's three passes (four launches) over a step list of
-    `n_steps` entries, the sum of the listed rays' lengths (None: summed
-    here, which waits for the device). Returns (I [3, H, W], T [H, W])."""
+def _replay_cuda(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan, lib):
+    """csrc/replay.cu: the three passes (four launches) over a step list of
+    `plan.capacity` entries, then the per-ray kernel for the rays past it.
+    Returns (I [3, H, W], T [H, W]); nothing waits for the device."""
     lib = cuda_lib.resolve(lib)
     _, _, h, w = rec.shape
     device = rec.device
     inten = torch.zeros((3, h, w), dtype=torch.float32, device=device)
     trans = torch.ones((h, w), dtype=torch.float32, device=device)
-    lengths = step_lengths(rec, order)
-    offsets = step_offsets(lengths)
-    if n_steps is None:
-        n_steps = int(lengths.sum())
-    if n_steps == 0:
-        return inten, trans
     consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(device)
-    pos, vel, emit = step_list(n_steps, device)
-    lib.replay_march(consts, rec, order, offsets, pos, vel, stream)
-    lib.replay_shade(consts, float(time), "disk", pos, vel, emit, stream)  # writes every step
+    pos, vel, emit = step_list(plan.capacity, device)
+    lib.replay_march(consts, rec, plan, pos, vel, stream)
+    lib.replay_shade(consts, float(time), "disk", plan, pos, vel, emit, stream)  # every step
     if scene.enable_clouds:
-        lib.replay_shade(consts, float(time), "cloud", pos, vel, emit, stream)
-    lib.replay_composite(order, offsets, emit, inten, trans, stream)
+        lib.replay_shade(consts, float(time), "cloud", plan, pos, vel, emit, stream)
+    lib.replay_composite(plan, emit, inten, trans, stream)
+    lib.replay_overflow(consts, float(time), rec, plan, inten, trans, stream)
     return inten, trans
 
 
@@ -404,11 +454,12 @@ def _replay_march_plain(scene: SceneConfig, rec: torch.Tensor, sel: torch.Tensor
     """Pass 1: (pos [S, 4], vel [S, 2]) — every replayed step's PRE-step
     rel and POST-step v (pos holds rel and v.x, vel v.y and v.z), each
     recorded segment of the listed rays (`sel`, flat pixels) from its ray's
-    offset plus its earlier slots' lengths."""
+    offset plus its earlier slots' lengths. Entries no segment writes stay
+    NaN, so a ray whose bookkeeping reads one shows it."""
     slots = rec.shape[0]
     flat = rec.reshape(slots, 7, -1)
-    pos = torch.empty((n_steps, 4), dtype=torch.float32, device=rec.device)
-    vel = torch.empty((n_steps, 2), dtype=torch.float32, device=rec.device)
+    pos = torch.full((n_steps, 4), float("nan"), dtype=torch.float32, device=rec.device)
+    vel = torch.full((n_steps, 2), float("nan"), dtype=torch.float32, device=rec.device)
     start = offsets.clone()
     for s in range(slots):
         live = torch.nonzero(flat[s, 6, sel] > 0.0).squeeze(1)
@@ -480,46 +531,91 @@ def media_replay(
     time,
     order: Optional[torch.Tensor] = None,
     lib=None,
-    n_steps: Optional[int] = None,
+    capacity: Optional[int] = None,
 ) -> Tuple[Vec3, torch.Tensor]:
     """The B pass: replay recorded media segments. `rec` is the record
     pass's [slots, 7, H, W] planes; `order` the int32 flat pixel indices
     to replay (None: every pixel, in image order). Returns (intensity Vec3,
     transmittance), [H, W]; pixels not replayed get I = 0, T = 1 — what
-    replaying their empty records gives. csrc/replay.cu's three passes for
-    CUDA tensors, the plain version for CPU tensors. `n_steps`, the sum of
-    the listed rays' lengths (`replay_list`), sizes the kernels' step list
-    without a host sync; None sums it here, which waits for the device."""
+    replaying their empty records gives. csrc/replay.cu for CUDA tensors,
+    the plain version for CPU tensors. `capacity`: the step list's entries
+    (None: `step_capacity` of the frame); rays past it are replayed one
+    thread a ray, with the same (I, T)."""
     if rec.dim() != 4 or rec.shape[1] != 7:
         raise ValueError(f"records must be [slots, 7, H, W], got {tuple(rec.shape)}")
-    slots, _, h, w = rec.shape
-    n = h * w
-    device = rec.device
+    n = rec.shape[2] * rec.shape[3]
     if order is None:
-        order = torch.arange(n, dtype=torch.int32, device=device)
-    if order.dtype != torch.int32 or order.dim() != 1 or order.device != device:
+        order = torch.arange(n, dtype=torch.int32, device=rec.device)
+    if order.dtype != torch.int32 or order.dim() != 1 or order.device != rec.device:
         raise ValueError("order must be a 1-D int32 tensor on the records' device")
+    total = rec[:, 6].sum(0)  # integers below 2^24: exact in any order
+    plan = replay_plan(total, step_capacity(n) if capacity is None else capacity, order)
+    return _replay(scene, rec, time, plan, lib)
+
+
+def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
+            lib) -> Tuple[Vec3, torch.Tensor]:
+    """(I, T) [H, W] of `plan`'s listed rays: the kernels for CUDA tensors;
+    on the CPU the same split with the plain versions: the passes' twins
+    over the step list of the rays that fit, `_replay_plain` (the per-ray
+    kernel's twin) for the rest."""
+    _, _, h, w = rec.shape
+    device = rec.device
     if device.type == "cuda":
-        inten, trans = _replay_cuda(scene, rec, time, order, n_steps, lib)
+        inten, trans = _replay_cuda(scene, rec, time, plan, lib)
     elif device.type == "cpu":
-        sel = order.to(torch.long)
-        inten = torch.zeros((3, n), dtype=torch.float32)
-        trans = torch.ones(n, dtype=torch.float32)
-        inten[:, sel], trans[sel] = _replay_plain(scene, rec, time, sel)
+        inten, trans = _replay_split_plain(scene, rec, time, plan)
         inten, trans = inten.reshape(3, h, w), trans.reshape(h, w)
     else:
         raise ValueError(f"unsupported device {device}")
     return Vec3(inten[0], inten[1], inten[2]), trans
 
 
-def media_replay_sorted(scene: SceneConfig, record: Record, time,
-                        lib=None) -> Tuple[Vec3, torch.Tensor]:
+def _replay_split_plain(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan):
+    """The kernels' split on CPU tensors: (I [3, N], T [N]). The first m_c
+    listed rays go through the three passes' twins over a step list of S_c
+    entries at the plan's offsets (S_c must fit the capacity), the rays
+    m_c..m through `_replay_plain`.
+
+    The shade twin takes the list's steps in pixel order, each ray's steps
+    in turn: torch's CPU transcendentals round an element by its place in
+    the batch, and this keeps a ray's bits independent of the list order
+    (the kernels' threads do not share)."""
+    m, m_c, _, s_c = plan.counts.tolist()
+    if s_c > plan.capacity:
+        raise AssertionError(f"{s_c} steps in a step list of {plan.capacity}")
+    n = rec.shape[2] * rec.shape[3]
+    order = plan.order.long()
+    inten = torch.zeros((3, n), dtype=torch.float32)
+    trans = torch.ones(n, dtype=torch.float32)
+    if m_c:
+        fit, offsets = order[:m_c], plan.offsets[:m_c]
+        pos, vel = _replay_march_plain(scene, rec, fit, offsets, s_c)
+        if bool(pos.isnan().any()):
+            raise AssertionError("the replay's offsets left step-list entries unwritten")
+        lengths = torch.diff(offsets, append=offsets.new_tensor([s_c]))
+        ray = torch.repeat_interleave(torch.arange(m_c), lengths)
+        key = fit[ray] * (int(lengths.max()) + 1) + torch.arange(s_c) - offsets[ray]
+        perm = torch.argsort(key)
+        emit = torch.empty((s_c, 4), dtype=torch.float32)
+        emit[perm] = _replay_shade_plain(scene, pos[perm], vel[perm], time)
+        inten[:, fit], trans[fit] = _replay_composite_plain(emit, offsets)
+    if m > m_c:
+        past = order[m_c:m]
+        inten[:, past], trans[past] = _replay_plain(scene, rec, time, past)
+    return inten, trans
+
+
+def media_replay_sorted(scene: SceneConfig, record: Record, time, lib=None,
+                        capacity: Optional[int] = None) -> Tuple[Vec3, torch.Tensor]:
     """The B pass over the rays that recorded media only, longest first,
     so each warp holds rays of similar replay length. A ray's replay
     depends only on its own records, so this is bitwise the image-layout
-    replay. The list's one host sync also brings its step count."""
-    order, n_steps = replay_list(record.total)
-    return media_replay(scene, record.rec, time, order=order, lib=lib, n_steps=n_steps)
+    replay. The list is built on the device (`replay_plan`): nothing waits
+    for it. `capacity` as in `media_replay`."""
+    n = record.total.numel()
+    plan = replay_plan(record.total, step_capacity(n) if capacity is None else capacity)
+    return _replay(scene, record.rec, time, plan, lib)
 
 
 # --------------------------------------------------------------------------
@@ -559,10 +655,11 @@ def _compact_tile_rgba(
         scene, camera, effects, time, w, h, settings.resolved_max_steps(scene),
         *sky.shape, slots=settings.media_slots, device=device, lib=lib, **place,
     )
+    capacity = step_capacity(w * h, settings.resolved_max_steps(scene))
     if settings.media_sort:
-        intensity, trans = media_replay_sorted(scene, record, time, lib=lib)
+        intensity, trans = media_replay_sorted(scene, record, time, lib=lib, capacity=capacity)
     else:
-        intensity, trans = media_replay(scene, record.rec, time, lib=lib)
+        intensity, trans = media_replay(scene, record.rec, time, lib=lib, capacity=capacity)
 
     # Captured rays: transmittance 0 (raymarcher.cu:49) — the replay
     # cannot know about captures, so the mask applies here.

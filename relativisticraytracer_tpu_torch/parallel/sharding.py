@@ -117,9 +117,10 @@ def shard_settings(settings: RenderSettings, ny: int, nx: int,
                    interleave: bool) -> RenderSettings:
     """Per-shard settings for an (ny, nx) grid: the JAX package's static
     replay capacity shrinks with the shard (2/N of the frame's when
-    interleaved, 2/nx for contiguous rectangles). The port's replay list
-    has dynamic shapes, so `media_capacity` selects nothing here; it is
-    kept so that both packages hand their shards the same settings."""
+    interleaved, 2/nx for contiguous rectangles). The port sizes each
+    shard's replay step list from its own pixels, so `media_capacity`
+    selects nothing here; it is kept so that both packages hand their
+    shards the same settings."""
     n_shards = ny * nx if interleave else nx
     shard_cap = max(2 * settings.media_capacity // max(n_shards, 1), 8 * 128)
     return dataclasses.replace(settings,

@@ -146,6 +146,20 @@ def sample_sky_fast(tex: Skybox, d: Vec3, effects) -> Vec3:
     return gather_sky_coords(tex, sky_coords(d, effects.ca_offset(), h, w), effects)
 
 
+# The JAX package's name for `sample_sky_fast` (the same function).
+sample_sky = sample_sky_fast
+
+
+def sample_bilinear(tex: Skybox, tx: torch.Tensor, ty: torch.Tensor) -> Vec3:
+    """CUDA tex2D<float4> with normalized coords, linear filter, wrap-U,
+    clamp-V, normalized-float reads (main.cpp:255-261): one gather per
+    channel fetches the whole pre-packed 2x2 quad."""
+    h, w = tex.shape
+    idx, fx, fy = sky_coords_from_uv(h, w, tx, ty)
+    return Vec3(*(quad_bilinear(plane.reshape(-1)[idx], fx, fy)
+                  for plane in (tex.qr, tex.qg, tex.qb)))
+
+
 def procedural_starfield(height: int = 1024, width: int = 2048, seed: float = 7.0,
                          device="cuda") -> np.ndarray:
     """Deterministic procedural equirect starfield + nebula, built from the

@@ -89,6 +89,18 @@ def test_vecmath_matches_jax(pq, rng):
         [ju.largest_divisor_at_most(n, k) for n, k in ((2000, 40), (7, 3), (9, 0))]
 
 
+def test_vec3_array_boundary_matches_jax(rng):
+    """from_array / to_array: [..., 3] arrays to and from Vec3 planes."""
+    a = (rng.standard_normal((5, 7, 3)) * 10.0).astype(np.float32)
+    tvec, jvec = tv.from_array(torch.from_numpy(a)), jv.from_array(jnp.asarray(a))
+    for t, j in zip(tvec, jvec):
+        np.testing.assert_array_equal(_np(t), _np(j))
+    back = tv.to_array(tvec)
+    assert back.shape == (5, 7, 3)
+    np.testing.assert_array_equal(_np(back), _np(jv.to_array(jvec)))
+    np.testing.assert_array_equal(_np(back), a)
+
+
 def test_fastmath_matches_jax(pq, rng):
     (jp, tp), (jq, tq) = pq
     # mul/add/div/select only: bitwise

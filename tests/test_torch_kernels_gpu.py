@@ -76,15 +76,16 @@ def test_record_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("sorted_order", [True, False])
 def test_replay_kernel_matches_plain(cuda, sorted_order):
     """The replay's march, shade and composite kernels give each ray the
-    plain replay's (I, T) bitwise, for the longest-first list (its step
-    count from the list's one sync) and for image order."""
+    plain replay's (I, T) bitwise, for the longest-first list built on the
+    device and for image order; every ray fits the step list, so the
+    per-ray kernel launches and does nothing."""
     k, _ = _record_both(cuda)
     scene = SceneConfig()
     lib = cuda_lib.kernels()
     lib.reset_launches()
     if sorted_order:
-        order, n_steps = pc.replay_list(k.total)
-        ik, tk = pc.media_replay(scene, k.rec, 10.0, order=order, n_steps=n_steps)
+        order = pc.replay_order(k.total)
+        ik, tk = pc.media_replay_sorted(scene, k, 10.0)
     else:
         order = torch.arange(k.hit.numel(), device=cuda, dtype=torch.int32)
         ik, tk = pc.media_replay(scene, k.rec, 10.0)
@@ -93,6 +94,68 @@ def test_replay_kernel_matches_plain(cuda, sorted_order):
     ip, tp = pc._replay_plain(scene, k.rec, 10.0, sel)
     assert torch.equal(torch.stack(list(ik)).reshape(3, -1)[:, sel], ip)
     assert torch.equal(tk.reshape(-1)[sel], tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", ["one step", "half"])
+@pytest.mark.parametrize("sorted_order", [True, False])
+def test_replay_overflow_kernel_bitwise(cuda, capacity, sorted_order):
+    """A step list too small for the frame: the rays past it go to the
+    per-ray kernel, and every ray's (I, T) is bitwise the unforced replay's
+    and the plain replay's (capacity 1 sends every ray there)."""
+    k, _ = _record_both(cuda)
+    scene = SceneConfig()
+    n_steps = pc.replay_list(k.total)[1]
+    cap = 1 if capacity == "one step" else n_steps // 2
+
+    def run(c):
+        if sorted_order:
+            return pc.media_replay_sorted(scene, k, 10.0, capacity=c)
+        return pc.media_replay(scene, k.rec, 10.0, capacity=c)
+
+    want_i, want_t = run(None)
+    got_i, got_t = run(cap)
+    assert torch.equal(torch.stack(list(got_i)), torch.stack(list(want_i)))
+    assert torch.equal(got_t, want_t)
+    sel = pc.replay_order(k.total).long()
+    ip, tp = pc._replay_plain(scene, k.rec, 10.0, sel)
+    assert torch.equal(torch.stack(list(got_i)).reshape(3, -1)[:, sel], ip)
+    assert torch.equal(got_t.reshape(-1)[sel], tp)
+
+
+@pytest.mark.gpu
+def test_replay_grids_stride_past_one_wave(cuda):
+    """At 1080p in image order every pixel is listed: the march, shade and
+    composite grids (one wave each) stride over millions of segments,
+    steps and rays, and at a capacity of one step the per-ray kernel
+    strides over every pixel. Each gives the longest-first list's (I, T)
+    bitwise."""
+    scene = SceneConfig()
+    scal = pc.pack_camera_scalars(camera_state_from_pose(*HEAD), CameraEffects(), 10.0)
+    k = pc._record_cuda(scene, scal, 1920, 1080, 2000, pc.SLOTS, 64, 128, cuda, None)
+    want = pc.media_replay_sorted(scene, k, 10.0)
+    for cap in (None, 1):
+        got = pc.media_replay(scene, k.rec, 10.0, capacity=cap)
+        assert torch.equal(torch.stack(list(got[0])), torch.stack(list(want[0])))
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_render_on_returns_before_the_frame_is_done(cuda):
+    """The compact frame program enqueues its whole 1080p frame without
+    waiting for the device: an event recorded right after render_on
+    returns has not completed (the record kernel alone takes ~20 ms)."""
+    r = Renderer(SceneConfig(), RenderSettings(width=1920, height=1080),
+                 skybox_rgba=SKY, device=cuda)
+    cam = camera_state_from_pose(*HEAD)
+    r.render(cam, CameraEffects(), 1.0)  # build the kernels, warm the allocator
+    torch.cuda.synchronize()
+    frame = r.render_on(None, cam, CameraEffects(), 1.0)
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    torch.cuda.synchronize()
+    assert frame.shape == (1080, 1920, 4) and frame.dtype == torch.uint8
 
 
 @pytest.mark.gpu
@@ -129,6 +192,32 @@ def test_sky_kernel_bitwise_on_unmasked(cuda, ca, q4):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ca", [0.0, 0.01])
+@pytest.mark.parametrize("q4", [True, False])
+@pytest.mark.parametrize("mask", [True, False])
+def test_sky_kernel_ragged_n_and_no_mask(cuda, ca, q4, mask):
+    """n % 4 != 0 (the kernel's scalar loads) and no mask (the inline
+    frame's call): bitwise the plain gather on every unmasked pixel."""
+    rng = np.random.default_rng(11)
+    sky = skybox_from_array(SKY, cuda)
+    if not q4:
+        sky = sky._replace(q4=None)
+    shape = (37, 59)  # n = 2183, n % 4 = 3
+    v = rng.standard_normal((3,) + shape).astype(np.float32)
+    v /= np.linalg.norm(v, axis=0, keepdims=True)
+    d = Vec3(*(torch.as_tensor(c, device=cuda) for c in v))
+    eff = CameraEffects(use_chromatic_aberration=1.0 if ca else 0.0, ca_amount=ca or 0.005)
+    coords = sky_coords(d, eff.ca_offset(), *sky.shape)
+    idx, fx, fy = (torch.stack([c[j] for c in coords]) for j in range(3))
+    masked = torch.as_tensor(rng.random(shape) < 0.3, device=cuda) if mask else None
+    got = torch.stack(list(ps.sky_background_windowed(sky, idx, fx, fy, eff, masked)))
+    want = ps._sky_plain(sky, idx, fx, fy, eff, masked)
+    keep = ~masked if mask else torch.ones(shape, dtype=torch.bool, device=cuda)
+    assert torch.equal(got[:, keep], want[:, keep])
+    assert (got[:, ~keep] == 0).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name,kw,fx_on", [
     ("schwarzschild_vacuum", dict(enable_disk=False, enable_clouds=False), False),
     ("kerr09_vacuum", dict(enable_disk=False, enable_clouds=False, spin_a=0.9), False),
@@ -146,10 +235,11 @@ def test_renderer_on_the_card_passes_goldens(cuda, name, kw, fx_on):
     want = np.load(ROOT / "goldens" / f"{name}.npy")
     d = got[..., :3].astype(int) - want[..., :3].astype(int)
     assert np.sqrt(np.mean((d / 255.0) ** 2)) < 1e-3
-    # no medium: the fused inline march (kernel 4), as in the JAX package;
-    # else record, the replay's passes (no cloud pass without clouds), sky
+    # no medium: the fused inline march (kernel 4) and the sky kernel, as
+    # in the JAX package; else record, the replay's kernels (no cloud pass
+    # without clouds), sky
     if not kw.get("enable_disk", True):
-        ran = {"march_sky"}
+        ran = {"march_sky", "sky"}
     else:
         ran = {"record", "sky"} | set(cuda_lib.REPLAY_PASSES)
         if not kw.get("enable_clouds", True):

@@ -149,3 +149,44 @@ def test_skybox_quad_planes_match_jax():
         for g, w in zip(got, want):
             # the port's arcsin may differ from XLA's by an ulp, moving fy
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ca", [0.0, 0.01])
+def test_sample_sky_and_sample_bilinear_match_jax(rng, ca):
+    """The JAX package's sampler names: sample_bilinear at uv coordinates
+    (bitwise, op by op) and sample_sky on escape directions, with and
+    without chromatic aberration."""
+    js, ts = _skies()
+    tx = rng.uniform(-0.5, 1.5, (N_ROWS, 128)).astype(np.float32)
+    ty = rng.uniform(-0.1, 1.1, (N_ROWS, 128)).astype(np.float32)
+    with jax.disable_jit():
+        want = jsky.sample_bilinear(js, jnp.asarray(tx), jnp.asarray(ty))
+    got = tsky.sample_bilinear(ts, torch.from_numpy(tx), torch.from_numpy(ty))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    jd, td = _dirs("random", rng)
+    on = 1.0 if ca else 0.0
+    with jax.disable_jit():
+        want = jsky.sample_sky(js, jd, JEffects(use_chromatic_aberration=on, ca_amount=ca))
+    got = tsky.sample_sky(ts, td, TEffects(use_chromatic_aberration=on, ca_amount=ca))
+    for g, w in zip(got, want):
+        # the port's arcsin may differ from XLA's by an ulp, moving fy
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ca", [0.0, 0.01])
+def test_sky_without_mask_is_gather_sky_coords(rng, ca):
+    """The inline frame's call (no mask): every pixel's background, bitwise
+    gather_sky_coords, JAX's and the port's."""
+    js, ts = _skies()
+    jd, td = _dirs("random", rng)
+    jeff = JEffects(use_chromatic_aberration=1.0 if ca else 0.0, ca_amount=ca)
+    teff = TEffects(use_chromatic_aberration=1.0 if ca else 0.0, ca_amount=ca)
+    coords, (idx, fx, fy) = _jax_coords(jd, js.shape, ca)
+    with jax.disable_jit():
+        want = jsky.gather_sky_coords(js, coords, jeff)
+    got = sky_background_windowed(ts, idx, fx, fy, teff)
+    port = tsky.gather_sky_coords(ts, tuple(zip(idx, fx, fy)), teff)
+    for g, w, p in zip(got, want, port):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert torch.equal(g, p)
