@@ -67,7 +67,11 @@ script exits non-zero without the final result line:
      host syncs under torch.profiler (none) and each shard's record launch
      by CUDA events; inline, each shard's
      march_planes launch by CUDA events beside its ray-steps and bound,
-     and one line from per-warp timelines (a measurement build,
+     the inline shards' sky through the sky kernel (8 launches, each
+     tile's background bitwise sample_sky_fast, the kernel's summed ms and
+     the coordinates + kernel path beside the torch gather path it
+     replaced; the inline grid traced: no torch gather as a device kernel
+     or host op), and one line from per-warp timelines (a measurement build,
      cuda_lib.kernels(timeline=True)) of the slowest shard's launch and of
      the full frame's: span, longest warp, the share of SM-time in the last
      20% with few warps resident, work per SM max over mean;
@@ -105,7 +109,15 @@ script exits non-zero without the final result line:
      renderers (tick ms still, flying and recording); the terminal
      preview and PreviewServer's /frame.jpg (where Pillow imports); the
      CLI's paths, still --preset cinema and anim --preset realtime as
-     subprocesses (wall time; no kernel build).
+     subprocesses (wall time; no kernel build);
+ 12. the user surface: graft_entry.entry() (256x256, 256 steps; RMSE
+     against the plain path on the card, launches, ms), dryrun_multichip(8)
+     with the card repeated (the 1080p grid bitwise the untiled frame) and
+     the six examples (relativisticraytracer_tpu_torch/examples/) as
+     subprocesses with RRT_DEVICE=cuda: render_still, custom_scene and
+     multi_chip at full size, render_animation 0.5 (12 frames at 720p),
+     frame_parallel_animation and live_preview in smoke mode (wall time and
+     exit code each; any non-zero exit fails).
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
@@ -492,6 +504,13 @@ def host_syncs(prof, name: str = "cudaStreamSynchronize") -> int:
 # itself; device kernels come from CUPTI's activity records)
 HOST_GATHERS = ("aten::index", "aten::index_select", "aten::gather", "aten::take",
                 "aten::take_along_dim")
+
+
+def torch_gathers_in(by_name: dict) -> list:
+    """torch's gather kernels (advanced indexing, index_select, gather)
+    among a trace's device kernels by name."""
+    return [k for k in by_name
+            if any(s in k.lower() for s in ("index_elementwise", "indexselect", "gather"))]
 
 
 def trace_frame(render, label: str, lib=None):
@@ -960,6 +979,110 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
         raise AssertionError("CLI runs: wrong outputs or an unexpected kernel build")
 
 
+# the port's examples on the card: (script, arguments, smoke mode, outputs
+# in the working directory and their (height, width) where a PNG)
+EXAMPLES = (
+    ("render_still.py", [], False, {"still.png": (1080, 1920)}),
+    ("custom_scene.py", [], False, {f"custom_t{t}.png": (720, 1280) for t in (0, 5, 10)}),
+    ("multi_chip.py", [], False, {"sharded.png": (1080, 1920)}),
+    ("render_animation.py", ["0.5"], False, {"flyby.*": None}),
+    ("frame_parallel_animation.py", [], True, {"flyby_720p.*": None}),
+    ("live_preview.py", [], True, {}),
+)
+
+
+def phase12_entry_points(lib, dev, tmp):
+    """Phase 12: the port's user surface on the card — graft_entry.entry()
+    (the frame against the plain path, its launches and ms),
+    dryrun_multichip(8) on this card's repeated device, the 1080p grid
+    bitwise the untiled frame, and the six examples as subprocesses."""
+    import os
+    import sys
+
+    from relativisticraytracer_tpu_torch import graft_entry
+    from relativisticraytracer_tpu_torch.config import CameraEffects, RenderSettings, SceneConfig
+    from relativisticraytracer_tpu_torch.io.image import decode_png
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import BUILD_DIR, REPLAY_PASSES
+    from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
+    from relativisticraytracer_tpu_torch.render.pipeline import Renderer, render_frame
+    from relativisticraytracer_tpu_torch.render.skybox import procedural_starfield
+
+    frame_kernels = ("record",) + REPLAY_PASSES + ("sky",)
+    fn, args = graft_entry.entry()
+    fn(*args)  # warm-up
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    frame = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = {k: v for k, v in lib.launches.items() if v}
+    _, entry_ms = sync_ms(lambda: fn(*args), reps=5)
+    plain = render_frame(SceneConfig(max_steps=256),
+                         RenderSettings(width=256, height=256, max_steps=256), *args,
+                         device=dev)
+    e = rmse(frame.cpu().numpy(), plain.cpu().numpy())
+    print(f"phase 12 graft_entry.entry(): frame {tuple(frame.shape)} {frame.dtype}, RMSE vs the "
+          f"plain path on the card {e:.3g}, {entry_ms:.3f} ms a frame (synchronized, mean of 5), "
+          f"launches {entry_launches}", flush=True)
+    if not (e < 1e-3 and frame.shape == (256, 256, 4)
+            and all(entry_launches.get(k, 0) >= 1 for k in frame_kernels)):
+        raise AssertionError(f"entry(): RMSE {e}, launches {entry_launches}")
+
+    lib.reset_launches()
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(8)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry_launches = {k: v for k, v in lib.launches.items() if v}
+    untiled = Renderer(SceneConfig(max_steps=8),
+                       RenderSettings(width=1920, height=1080, max_steps=8),
+                       skybox_rgba=procedural_starfield(64, 128, device=dev),
+                       device=dev).render_np(camera_state_from_pose(*graft_entry.POSE),
+                                             CameraEffects(), 1.0)
+    equal = np.array_equal(dry["frame_hd"], untiled)
+    print(f"phase 12 dryrun_multichip(8): {torch.cuda.device_count()} card(s) served 8 shards, "
+          f"{dry_s * 1000.0:.1f} ms for the three stages; the 1080p grid bitwise the untiled frame "
+          f"{equal}; job {dry['job']['frames_written']} frames; launches {dry_launches}",
+          flush=True)
+    if not equal or not all(dry_launches.get(k, 0) >= 1 for k in frame_kernels):
+        raise AssertionError(f"dryrun_multichip(8): grid equal {equal}, launches {dry_launches}")
+
+    # the six examples as subprocesses (the library is already built: no nvcc)
+    before = set(BUILD_DIR.glob("*.so"))
+    examples = ROOT / "relativisticraytracer_tpu_torch" / "examples"
+    runs = []
+    for name, argv, smoke, outputs in EXAMPLES:
+        cwd = tmp / name.removesuffix(".py")
+        cwd.mkdir()
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RRT_DEVICE="cuda",
+                   RRT_RECORDING_DIR=str(cwd))
+        env.pop("RRT_EXAMPLE_SMOKE", None)
+        if smoke:
+            env["RRT_EXAMPLE_SMOKE"] = "1"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(examples / name), *argv], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        runs.append(f"{name}{' ' + ' '.join(argv) if argv else ''}"
+                    f"{' (smoke)' if smoke else ''} {wall:.1f} s rc {proc.returncode}")
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} exited {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        for pattern, hw in outputs.items():
+            found = sorted(cwd.glob(pattern))
+            if not found:
+                raise AssertionError(f"example {name}: no {pattern}")
+            if hw is not None and decode_png(found[0]).shape[:2] != hw:
+                raise AssertionError(f"example {name}: {pattern} is not {hw}")
+        last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        runs[-1] += f" ({last[:160]})"
+    built = set(BUILD_DIR.glob("*.so")) - before
+    print("phase 12 examples (subprocesses, RRT_DEVICE=cuda): " + "; ".join(runs)
+          + f"; kernel build in them: {'none (library cached)' if not built else built}",
+          flush=True)
+    if built:
+        raise AssertionError(f"examples built the kernels again: {built}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.parse_args()
@@ -992,6 +1115,7 @@ def main() -> None:
     )
     from relativisticraytracer_tpu_torch.render.skybox import (
         procedural_starfield,
+        sample_sky_fast,
         sky_coords,
         skybox_from_array,
     )
@@ -1536,9 +1660,10 @@ def main() -> None:
 
     # ---- phase 8: shards on one card, one after another
     mesh = sharding.make_mesh([dev] * 8, (4, 2))
+    ny_nx = mesh.devices.size
     for label, sset, whole_np, kernels in (
         ("compact, interleave auto", settings, frame_np, ("record",) + REPLAY_PASSES + ("sky",)),
-        ("inline", inline_settings, inline_np, ("march_planes",)),
+        ("inline", inline_settings, inline_np, ("march_planes", "sky")),
     ):
         fn = sharding.make_sharded_renderer(scene, sset, mesh)
         fn(hcam, eff, 1.0, head_sky)  # warm-up
@@ -1556,6 +1681,7 @@ def main() -> None:
             per_launch = shard_launch_ms(lib, "march_planes", fn, hcam, eff, head_sky, reps=3)
             kernel_ms = (f"; march_planes per launch {[round(x, 3) for x in per_launch]} ms "
                          f"(sum {sum(per_launch):.3f})")
+            inline_grid = fn
         else:  # each shard's record launch; the grid enqueued without a host sync
             shard_record_ms = shard_launch_ms(lib, "record", fn, hcam, eff, head_sky, reps=3)
             line, grid_syncs, _, grid_pending, _, _ = trace_frame(
@@ -1574,6 +1700,9 @@ def main() -> None:
             raise AssertionError(f"sharded frame ({label}) failed: {shard_launches}")
         if label == "inline":
             launches["march_planes"] = shard_launches["march_planes"]
+            if shard_launches["sky"] != ny_nx:
+                raise AssertionError(f"inline shard grid: {shard_launches['sky']} sky launches, "
+                                     f"expected one a shard ({ny_nx})")
 
     # each inline shard's ray-steps and bound beside its march_planes launch
     ny, nx = mesh.shape
@@ -1588,6 +1717,54 @@ def main() -> None:
     for k, (st, b_ms, l_ms) in enumerate(zip(shard_steps, shard_bounds, per_launch)):
         print(f"  shard {divmod(k, nx)}: {st} ray-steps ({st / n_steps:.4f} of the frame's), "
               f"bound {b_ms:.3f} ms, march_planes {l_ms:.3f} ms ({b_ms / l_ms:.3f} of bound)")
+    # the inline shards' sky: the sky kernel on each tile's coordinates
+    # (sharding.tile_background), beside the torch gather it replaced
+    # (sample_sky_fast on the tile's directions), on the same velocities;
+    # device ms on a held stream (event_ms)
+    kernel_ms, tile_ms, old_ms = [], [], []
+    for k in range(ny * nx):
+        vel = march_shard(lib, scene, ho, hd, k, ny, nx, steps_h, dev)[3]
+        new_bg = sharding.tile_background(head_sky, vel, eff)
+        old_bg = sample_sky_fast(head_sky, normalize(vel), eff)
+        if not all(torch.equal(a, b) for a, b in zip(new_bg, old_bg)):
+            raise AssertionError(f"shard {divmod(k, nx)}: tile_background != sample_sky_fast")
+        coords = sky_coords(normalize(vel), eff.ca_offset(), *head_sky.shape)
+        sidx, sfx, sfy = (torch.stack(planes) for planes in zip(*coords))
+        kernel_ms.append(event_ms(lambda: ps.sky_background_windowed(head_sky, sidx, sfx, sfy,
+                                                                     eff)))
+        tile_ms.append(event_ms(lambda: sharding.tile_background(head_sky, vel, eff)))
+        old_ms.append(event_ms(lambda: sample_sky_fast(head_sky, normalize(vel), eff)))
+    _, _, grid_names, _, grid_ops, grid_launches = trace_frame(
+        lambda: inline_grid(hcam, eff, 1.0, head_sky), "shards_inline", lib)
+    grid_gathers = torch_gathers_in(grid_names)
+    # the whole inline grid, synchronized, with the sky kernel and with the
+    # torch gather path put back (sharding.tile_background swapped), in turns
+    new_tile_background = sharding.tile_background
+    grid_ab = {"sky kernel": [], "torch gather": []}
+    try:
+        for turn in ("sky kernel", "torch gather", "torch gather", "sky kernel") * 5:
+            sharding.tile_background = (new_tile_background if turn == "sky kernel" else
+                                        lambda sky, vel, e: sample_sky_fast(sky, normalize(vel), e))
+            grid_ab[turn].append(sync_ms(lambda: inline_grid(hcam, eff, 1.0, head_sky))[1])
+    finally:
+        sharding.tile_background = new_tile_background
+    med = {k: float(np.median(v)) for k, v in grid_ab.items()}
+    print(f"phase 8 inline shards' sky: {grid_launches['sky']} sky launches in the traced grid "
+          f"(count), sky in its device trace {grid_names.get('sky', 0.0):.4f} ms, torch gathers "
+          f"on the device {grid_gathers}, as host ops {grid_ops}; sky kernel per shard "
+          f"{[round(x, 4) for x in kernel_ms]} ms (sum {sum(kernel_ms):.4f}, held stream); "
+          f"coordinates + sky kernel (tile_background) summed {sum(tile_ms):.4f} ms against the "
+          f"torch gather path it replaced (sample_sky_fast) summed {sum(old_ms):.4f} ms, "
+          f"bitwise equal; the inline grid synchronized, 10 turns each: sky kernel median "
+          f"{med['sky kernel']:.3f} ms {[round(x, 3) for x in grid_ab['sky kernel']]}, torch "
+          f"gather median {med['torch gather']:.3f} ms "
+          f"{[round(x, 3) for x in grid_ab['torch gather']]}; device ms by kernel in the traced "
+          f"grid: " + "; ".join(f"{k} {v:.3f}" for k, v in
+                               sorted(grid_names.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
+    if grid_gathers or grid_ops or grid_launches["sky"] != ny_nx:
+        raise AssertionError(f"inline shard grid: sky launches {grid_launches['sky']}, torch "
+                             f"gathers {grid_gathers} {grid_ops}")
     ms_full_planes = ms["march_planes"]
     ms["march_planes"] = sum(per_launch)
     bounds["march_planes"] = (sum(shard_bounds), "operations")
@@ -1637,8 +1814,7 @@ def main() -> None:
     # kernels and as host ops. The traced frame's sky launch is read from the
     # wrapper's count: CUPTI's record of a kernel is not guaranteed to reach
     # the trace, the count is made where the kernel is launched.
-    torch_gathers = [k for k in inline_names
-                     if any(s in k.lower() for s in ("index_elementwise", "indexselect", "gather"))]
+    torch_gathers = torch_gathers_in(inline_names)
     print(f"phase 7 inline frame: sky launches {inline_launches['sky']} (count), sky in the "
           f"device trace {'sky' in inline_names}; torch gathers on the device {torch_gathers}, "
           f"as host ops {inline_ops}", flush=True)
@@ -1673,6 +1849,12 @@ def main() -> None:
                         {"compact": thr, "inline": thr_i / 5}, pathlib.Path(tmp))
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 12: the graft entry, the dry run and the examples
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase12_entry_points(lib, dev, pathlib.Path(tmp))
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     rows = {name: dict(launches=launches[name], max_abs_err=errs[name], ms=ms[name],
                        plain_ms=plain_ms[name], bound_ms=bounds[name][0],
                        bound_by=bounds[name][1], library_ms=None,
@@ -1681,6 +1863,7 @@ def main() -> None:
             for name in floors}
     rows["replay_overflow"]["main_path_ms"] = pass_ms["replay_overflow"]
     rows["sky"]["inline_ms"] = ms_sky_inline
+    rows["sky"]["inline_shards_ms"] = sum(kernel_ms)  # phase 8: 8 shard launches, held stream
     rows.update(probe_rows)
     table = {"kernels": [dict(name=name, route="cuda", source=src, replaces=rep, **rows[name])
                          for name, (src, rep, _) in KERNELS.items()]}

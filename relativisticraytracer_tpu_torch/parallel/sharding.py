@@ -39,13 +39,14 @@ from relativisticraytracer_tpu_torch.config import CameraEffects, RenderSettings
 from relativisticraytracer_tpu_torch.core.vecmath import Vec3, normalize
 from relativisticraytracer_tpu_torch.ops.pallas_compact import _compact_tile_rgba
 from relativisticraytracer_tpu_torch.ops.pallas_march import march_pallas
+from relativisticraytracer_tpu_torch.ops.pallas_sky import sky_background_windowed
 from relativisticraytracer_tpu_torch.render.camera import CameraState, generate_rays
 from relativisticraytracer_tpu_torch.render.postfx import (
     apply_effects_and_tonemap,
     downsample_box,
     pack_rgba8,
 )
-from relativisticraytracer_tpu_torch.render.skybox import Skybox, sample_sky_fast
+from relativisticraytracer_tpu_torch.render.skybox import Skybox, sky_coords
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +186,17 @@ def interleave_params(settings: RenderSettings, mesh: Mesh):
     return ny, nx, sh // ss, sw // ss
 
 
+def tile_background(sky: Skybox, vel: Vec3, effects: CameraEffects) -> Vec3:
+    """The sky behind a tile's rays, from their final velocities: the sky
+    coordinates of each direction, fetched by the sky kernel (its plain
+    version on the CPU) as in the inline frame. No mask: captured rays
+    have transmittance 0, which erases their background. Bitwise
+    render.skybox.sample_sky_fast."""
+    coords = sky_coords(normalize(vel), effects.ca_offset(), *sky.shape)
+    idx, fx, fy = (torch.stack(planes) for planes in zip(*coords))
+    return sky_background_windowed(sky, idx, fx, fy, effects)
+
+
 # (grid cell (i, j), its device, a call that renders its uint8 tile there)
 ShardProgram = Tuple[Tuple[int, int], torch.device, Callable[[], torch.Tensor]]
 
@@ -241,7 +253,7 @@ def _shard_programs(scene: SceneConfig, settings: RenderSettings, mesh: Mesh,
         intensity, trans, hit, vel = march_pallas(scene, origin.map(cut), direction.map(cut),
                                                   time, max_steps)
         if sky is not None:
-            bg = sample_sky_fast(sky_on(dev), normalize(vel), effects)
+            bg = tile_background(sky_on(dev), vel, effects)
         else:
             zero = torch.zeros_like(trans)
             bg = Vec3(zero, zero, zero)

@@ -101,13 +101,21 @@ def test_inline_media_pass_is_not_ported_yet():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX: the card machine has
-    none."""
+    """Every module of the port, the graft entry included, and every
+    import statement of the port's examples run without JAX: the card
+    machine has none."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import ast, importlib, pathlib, pkgutil, sys\n"
         "import relativisticraytracer_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'relativisticraytracer_tpu_torch.graft_entry' in sys.modules\n"
+        "examples = sorted(pathlib.Path(pkg.__path__[0], 'examples').glob('*.py'))\n"
+        "assert len(examples) == 6, examples\n"
+        "for path in examples:\n"
+        "    tree = ast.parse(path.read_text())\n"
+        "    imports = [n for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))]\n"
+        "    exec(compile(ast.Module(body=imports, type_ignores=[]), str(path), 'exec'), {})\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert not any(k.startswith('relativisticraytracer_tpu.') or\n"
         "               k == 'relativisticraytracer_tpu' for k in sys.modules)\n"

@@ -26,18 +26,26 @@ from relativisticraytracer_tpu_torch.config import (
     SceneConfig,
     effects_off,
 )
-from relativisticraytracer_tpu_torch.core.vecmath import Vec3, fdiv
+from relativisticraytracer_tpu_torch.core.vecmath import Vec3, fdiv, normalize
 from relativisticraytracer_tpu_torch.media.densities import cloud_probe_bounds, disk_probe_bounds
 from relativisticraytracer_tpu_torch.ops import cuda_lib
 from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
 from relativisticraytracer_tpu_torch.ops import pallas_march as pm
 from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
 from relativisticraytracer_tpu_torch.ops.camera_rays import rays_from_scalars
-from relativisticraytracer_tpu_torch.parallel.sharding import make_mesh, make_sharded_renderer
+from relativisticraytracer_tpu_torch.parallel.sharding import (
+    make_mesh,
+    make_sharded_renderer,
+    tile_background,
+)
 from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
 from relativisticraytracer_tpu_torch.render.march import adaptive_h
 from relativisticraytracer_tpu_torch.render.pipeline import Renderer
-from relativisticraytracer_tpu_torch.render.skybox import sky_coords, skybox_from_array
+from relativisticraytracer_tpu_torch.render.skybox import (
+    sample_sky_fast,
+    sky_coords,
+    skybox_from_array,
+)
 
 torch.set_num_threads(2)
 
@@ -391,6 +399,26 @@ def test_sharded_frame_on_one_card(cuda, media_pass):
     whole = Renderer(scene, settings, skybox=sky, device=cuda).render_np(
         cam, CameraEffects(), 10.0)
     np.testing.assert_array_equal(tiled, whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ca", [0.0, 1.0], ids=["ca_off", "ca_on"])
+def test_tile_background_on_the_card_equals_sample_sky_fast(cuda, ca):
+    """The shard plane tile's sky (coordinates + the sky kernel, one
+    launch) is bitwise the torch gather it replaced, on a plane march's
+    final velocities."""
+    eff = CameraEffects(use_chromatic_aberration=ca, ca_amount=0.004)
+    sky = skybox_from_array(SKY, cuda)
+    scal = pc.pack_camera_scalars(camera_state_from_pose(*HEAD), eff, 10.0)
+    origin, direction = rays_from_scalars(scal, 96, 56, cuda)
+    _, _, _, vel = pm.march_pallas(SceneConfig(), origin, direction, 10.0, 2000)
+    lib = cuda_lib.kernels()
+    lib.reset_launches()
+    got = tile_background(sky, vel, eff)
+    assert lib.launches["sky"] == 1
+    want = sample_sky_fast(sky, normalize(vel), eff)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_scene_consts_fold_like_the_jax_package():

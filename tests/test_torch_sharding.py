@@ -16,9 +16,12 @@ from relativisticraytracer_tpu.parallel import sharding as jsh
 from relativisticraytracer_tpu_torch.config import CameraEffects as TEffects
 from relativisticraytracer_tpu_torch.config import RenderSettings as TSettings
 from relativisticraytracer_tpu_torch.config import SceneConfig as TScene
+from relativisticraytracer_tpu_torch.core.vecmath import Vec3, normalize
 from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
+from relativisticraytracer_tpu_torch.ops import pallas_march as pm
 from relativisticraytracer_tpu_torch.parallel import sharding as tsh
 from relativisticraytracer_tpu_torch.render import camera as tcam
+from relativisticraytracer_tpu_torch.render import skybox as tsky
 from relativisticraytracer_tpu_torch.render.pipeline import Renderer
 from relativisticraytracer_tpu_torch.render.skybox import skybox_from_array
 
@@ -33,9 +36,9 @@ FX = TEffects(use_lens_distortion=1.0, distortion_amount=-0.15,
               use_chromatic_aberration=1.0, ca_amount=0.004, use_vignette=1.0)
 
 
-def _frames(media_pass, shape, effects=TEffects(), ss=1, interleave="auto"):
+def _frames(media_pass, shape, effects=TEffects(), ss=1, interleave="auto", **scene_kw):
     """(reassembled sharded frame, single-device frame) as numpy."""
-    scene = TScene(max_steps=STEPS)
+    scene = TScene(max_steps=STEPS, **scene_kw)
     settings = TSettings(width=32, height=24, max_steps=STEPS, media_pass=media_pass,
                          supersample=ss)
     cam = tcam.camera_state_from_pose(*POSE)
@@ -62,6 +65,37 @@ def test_tiled_equals_untiled(media_pass, shape):
 def test_compact_shards_with_effects_strips_and_supersample(shape, effects, ss, interleave):
     tiled, untiled = _frames("compact", shape, effects, ss, interleave)
     np.testing.assert_array_equal(tiled, untiled)
+
+
+@pytest.mark.parametrize("effects", [TEffects(), FX], ids=["ca_off", "ca_on"])
+@pytest.mark.parametrize("media_pass,scene_kw", [
+    ("inline", {}),
+    ("compact", dict(enable_disk=False, enable_clouds=False)),  # no medium: plane tiles
+], ids=["inline", "no_medium"])
+def test_plane_tiles_through_the_sky_call_equal_untiled(media_pass, scene_kw, effects):
+    """The non-compact tiles fetch their sky through the sky kernel's
+    call (tile_background) and stay bitwise the untiled frame."""
+    tiled, untiled = _frames(media_pass, (2, 2), effects, interleave=False, **scene_kw)
+    np.testing.assert_array_equal(tiled, untiled)
+
+
+@pytest.mark.parametrize("ca", [0.0, 1.0], ids=["ca_off", "ca_on"])
+def test_tile_background_equals_sample_sky_fast(ca):
+    """The plane tile's background (sky coordinates + the sky kernel's
+    plain version) is bitwise the sample_sky_fast it replaced, on a
+    march's final velocities and on random unnormalised directions."""
+    effects = TEffects(use_chromatic_aberration=ca, ca_amount=0.004)
+    cam = tcam.camera_state_from_pose(*POSE)
+    origin, direction, _, _ = tcam.generate_rays(24, 16, cam, effects, "cpu")
+    _, _, _, vel = pm.march_pallas(TScene(max_steps=STEPS), origin, direction, 1.0, STEPS)
+    rng = np.random.default_rng(7)
+    rand = Vec3(*(torch.from_numpy(rng.normal(size=(16, 24)).astype(np.float32) * 40.0)
+                  for _ in range(3)))
+    for v in (vel, rand):
+        got = tsh.tile_background(SKY, v, effects)
+        want = tsky.sample_sky_fast(SKY, normalize(v), effects)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_shard_record_is_a_crop_of_the_full_record():
