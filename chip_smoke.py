@@ -17,8 +17,9 @@ script exits non-zero without the final result line:
   3. kernels vs plain PyTorch on the card: record at 192x108 with 2000
      steps (hit mismatch < 1e-3, sky index equal where hit agrees), replay's
      three passes on that record (rtol 2e-6 / atol 5e-7; bitwise
-     expected), the per-ray overflow kernel at a forced capacity of 1 step
-     and of half the steps (bitwise the plain replay), sky on random and
+     expected), forced step lists of 1 step (the per-ray kernel), a third
+     of the steps (at least 3 rounds) and half (each bitwise the plain
+     replay; each round's ms and the per-ray kernel's), sky on random and
      smooth directions with chromatic aberration on and off, with and
      without a mask, at n % 4 == 0 and != 0 (bitwise where unmasked), the
      three fused march kernels (march_sky, march_camera,
@@ -35,10 +36,16 @@ script exits non-zero without the final result line:
      times beside the plain versions', the frame against the plain path on
      the card (RMSE < 1e-3), launches of each kernel on the main path,
      replayed rays and peak memory, the replay's device-side bookkeeping
-     (replay_plan) and each replay pass's time (march, shade disk, shade
-     cloud, composite), the step list's capacity and size, the per-ray
-     overflow kernel's no-op launch and, at a forced capacity of half the
-     steps, its launch against its plain version on the rays past it; then
+     (replay_plan, its rounds kernel) and each replay pass's time in round
+     0 (march, shade disk, shade cloud, composite), the empty rounds' time,
+     the replay stage (plan, every round, the per-ray kernel) beside the
+     same with its plan cut to one round, the step list's capacity and
+     size, the per-ray kernel's no-op launch; forced step lists of 1 step,
+     a third and half of the steps, bitwise the plain replay of every ray,
+     each round's ms and the per-ray kernel's (at 1 step against its plain
+     version on its rays); the headline pose at 3840x2160 and 7680x4320
+     through the compact program (bitwise the inline frame; ms a frame, the
+     step list's bytes, max_memory_allocated); then
      the same frame with media_pass="inline" (march_sky and the sky kernel
      without a mask: latency, throughput, RMSE against the compact frame), the no-sky frame (march_camera), march_planes on the
      headline rays, march_sky on the same frame with no medium (the same
@@ -48,9 +55,9 @@ script exits non-zero without the final result line:
      which size the bounds and give the SIMT efficiency of 16x2 and 8x4
      warp footprints and of ideal lane refill); and the replay's traffic
      on the three default paths, each second, at the cinema, native and
-     realtime sizes (tools/replay_traffic.py: steps a pixel, the frames
-     whose rays overflow the step list, their replay ms against a list
-     that holds every step, the two replays bitwise);
+     realtime sizes (tools/replay_traffic.py: steps a pixel, the rounds
+     each frame uses, the rays left to the per-ray kernel, the replay ms
+     against one list that holds every step, the two replays bitwise);
   6. the -fmad=false vs contracted-FMA build A/B on the headline frame
      (informational; a build or launch failure still fails the run);
   7. one headline frame and one inline headline frame under
@@ -122,8 +129,11 @@ script exits non-zero without the final result line:
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
 and what bounds it, and for the frame kernels the measured floor, what
-sets it and the SASS diagnostic; the per-ray overflow kernel's ms is its
-forced-capacity launch, its main-path no-op launch beside it), the
+sets it and the SASS diagnostic; the replay's row counts every round's
+launches and gives the stage, the empty rounds and the 4K and 8K frames
+beside its ms; the per-ray overflow kernel's ms is its launch at a step
+list of 1 step, its main-path no-op launch and the half-capacity tail
+through the rounds beside it), the
 nvidia-smi line, and last {"ok": true, "device": {...}}. It needs one
 CUDA card and imports no JAX.
 """
@@ -176,10 +186,11 @@ KERNELS = {
     "record": (CSRC + "record.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:332",
                ("record_kernel",)),
     "replay": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
-               ("replay_march_kernel", "shade_disk_kernel", "shade_cloud_kernel",
-                "replay_composite_kernel")),
+               ("replay_rounds_kernel", "replay_march_kernel", "shade_disk_kernel",
+                "shade_cloud_kernel", "replay_composite_kernel")),
     # the same TPU kernel's exact fallback (its image-layout replay under
-    # lax.cond, pallas_compact.py:735-744): the rays past the step list
+    # lax.cond, pallas_compact.py:735-744): the rays the rounds of the step
+    # list do not take
     "replay_overflow": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
                         ("replay_overflow_kernel",)),
     "sky": (CSRC + "sky.cu", "relativisticraytracer_tpu/ops/pallas_sky.py:189", ("sky_kernel",)),
@@ -233,6 +244,23 @@ def event_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def round_ms(pc, lib, scene, rec, time, plan, dev):
+    """Device ms (event_ms) of each round of the replay's passes on `plan`
+    over one step list, in order, and of the per-ray kernel after them."""
+    from relativisticraytracer_tpu_torch.ops import cuda_lib
+
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
+    pos, vel, emit = pc.step_list(plan.capacity, dev)
+    inten = torch.zeros((3,) + tuple(rec.shape[2:]), device=dev)
+    trans = torch.ones(tuple(rec.shape[2:]), device=dev)
+    per_round = [event_ms(lambda r=r: pc.replay_round(lib, consts, scene, time, rec, plan, r, pos,
+                                                      vel, emit, inten, trans, stream))
+                 for r in range(plan.rounds.shape[0])]
+    per_ray = event_ms(lambda: lib.replay_overflow(consts, float(time), rec, plan, inten, trans,
+                                                   stream))
+    return per_round, per_ray
 
 
 def bound(ops: float, nbytes: float):
@@ -588,7 +616,7 @@ def max_sm_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, overflow):
+def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, overflow, tail):
     """Phase 10: the card's streaming rate, the probe kernels
     (csrc/probes.cu) against their plain twins at the tools' own shapes,
     then the two tools' own runs — their launches are this phase's count —
@@ -596,8 +624,9 @@ def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, o
     counts of a vacuum step, each frame kernel's measured floor and SASS
     diagnostic, and take_along_kernel against torch.gather. `overflow` is
     (steps, disk-probe steps, cloud-probe steps, bytes) of the per-ray
-    kernel's forced run. Returns (table rows of the two probes, {kernel:
-    (floor ms, floor by, SASS ms)})."""
+    kernel's forced run, `tail` the same of the rays past the first round
+    at half the steps. Returns (table rows of the two probes, {kernel:
+    (floor ms, floor by, SASS ms)}, the tail's floor ms)."""
     from relativisticraytracer_tpu_torch.tools import roofline as rf
     from relativisticraytracer_tpu_torch.tools import sky_primitives as sp
 
@@ -676,6 +705,7 @@ def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, o
 
     floors["replay"] = ops_or_bytes(n_replay, n_disk, n_cloud, replay_bytes)
     floors["replay_overflow"] = ops_or_bytes(*overflow)
+    tail_floor = ops_or_bytes(*tail)[0]
     floors["sky"] = (sky_bytes / rate * 1000.0, "bytes", None)
     for name, row in sky.items():
         if name.startswith("take_along") and not row["bitwise"]:
@@ -696,7 +726,7 @@ def phase10_probes(lib, dev, n_sms, counts, n_replay, replay_bytes, sky_bytes, o
                            bound_by="bytes", library_ms=s64["gather_ms"],
                            floor_ms=s64["bound_ms"] * PEAK_BYTES / rate, floor_by="bytes"),
     }
-    return rows, floors
+    return rows, floors, tail_floor
 
 
 def yuv_oracle(frame: np.ndarray) -> np.ndarray:
@@ -803,10 +833,10 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
         rc = renderers["compact"]
         jt = [frame_traffic(rc.scene, rc.settings, (k + 1) / fps,
                             interpolate_path(path, (k + 1) / fps), dev, lib) for k in range(n)]
-        print(f"phase 11 compact job's replay traffic (frame: steps S, steps a pixel, rays past "
-              f"the {jt[0]['capacity']}-entry step list): "
-              + "; ".join(f"{k} {r['steps']} {r['density']:.2f} {r['rays_past']}"
-                          for k, r in enumerate(jt)), flush=True)
+        print(f"phase 11 compact job's replay traffic (frame: steps S, steps a pixel, rounds "
+              f"used, rays past the rounds of the {jt[0]['capacity']}-entry step list): "
+              + "; ".join(f"{k} {r['steps']} {r['density']:.2f} {r['rounds_used']} "
+                          f"{r['rays_past']}" for k, r in enumerate(jt)), flush=True)
 
         # the device->host copy of one frame, pinned and pageable
         r = renderers["compact"]
@@ -1084,6 +1114,7 @@ def phase12_entry_points(lib, dev, tmp):
 
 
 def main() -> None:
+    t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.parse_args()
     if not torch.cuda.is_available():
@@ -1192,7 +1223,7 @@ def main() -> None:
     errs["record"] = fxy_err
 
     order, rsteps = pc.replay_list(rk.total)
-    ik, tk = pc.media_replay_sorted(scene, rk, t, lib=lib)
+    ik, tk = pc.media_replay_sorted(scene, rk, t, lib=lib, max_steps=steps)
     ip = torch.zeros((3, h * w), device=dev)
     tp = torch.ones(h * w, device=dev)
     sel = order.long()
@@ -1204,19 +1235,26 @@ def main() -> None:
     print(f"phase 3 replay {order.numel()} rays, {rsteps} steps (march, shade, composite "
           f"passes): max |d(I,T)| {errs['replay']:.3g} (rtol 2e-6, atol 5e-7; bitwise "
           f"{bool(torch.equal(got, want))})", flush=True)
-    # the per-ray overflow kernel: a step list of 1 step (every ray past it)
-    # and of half the steps, bitwise the plain replay
+    # forced step lists: of 1 step (the rays longer than it go to the
+    # per-ray kernel), of a third of the steps (at least 3 rounds) and of
+    # half; each bitwise the plain replay, with each round's ms
     errs["replay_overflow"] = 0.0
-    for cap in (1, rsteps // 2):
-        plan = pc.replay_plan(rk.total, cap)
-        fi, ft = pc.media_replay_sorted(scene, rk, t, lib=lib, capacity=cap)
+    for name, cap in (("one step", 1), ("a third", rsteps // 3), ("half", rsteps // 2)):
+        plan = pc.replay_plan(rk.total, cap, lib=lib)
+        fi, ft = pc._replay(scene, rk.rec, t, plan, lib)
         fgot = torch.stack([fi.x, fi.y, fi.z, ft]).reshape(4, -1)
-        m, m_c = plan.counts[:2].tolist()
+        m, m_r = plan.counts[:2].tolist()
+        used = [r for r in plan.rounds.tolist() if r[1]]
+        r_ms, ov_ms = round_ms(pc, lib, scene, rk.rec, t, plan, dev)
         errs["replay_overflow"] = max(errs["replay_overflow"], (fgot - want).abs().max().item())
-        print(f"phase 3 replay_overflow at capacity {cap}: {m - m_c} of {m} rays past the step "
-              f"list, bitwise the plain replay {bool(torch.equal(fgot, want))}", flush=True)
+        print(f"phase 3 replay at capacity {cap} ({name}): rounds with rays {len(used)} of "
+              f"{len(r_ms)} (rays {[r[1] for r in used]}), {m - m_r} of {m} rays to the per-ray "
+              f"kernel; bitwise the plain replay {bool(torch.equal(fgot, want))}; round ms "
+              f"{[round(x, 4) for x in r_ms]}, per-ray kernel {ov_ms:.4f} ms", flush=True)
         if not torch.equal(fgot, want):
             raise AssertionError(f"replay at capacity {cap} is not bitwise the plain replay")
+        if name == "a third" and len(used) < 3:
+            raise AssertionError(f"a third of the steps ran {len(used)} rounds, not 3 or more")
 
     head_sky = skybox_from_array(procedural_starfield(2048, 4096, device=dev), dev)
     rng = np.random.default_rng(7)
@@ -1376,83 +1414,138 @@ def main() -> None:
     rec = pc._record_cuda(*hargs, lib)
     horder, hsteps = pc.replay_list(rec.total)
     hcap = pc.step_capacity(hw * hh, scene.max_steps)
-    hplan = pc.replay_plan(rec.total, hcap)
+    hrounds = pc.replay_rounds(hw * hh, scene.max_steps, hcap)
+    hplan = pc.replay_plan(rec.total, hcap, rounds=hrounds, lib=lib)
     masked = rec.hit > 0.5
     inten, trans = pc._replay(scene, rec.rec, 1.0, hplan, lib)
     bg = ps.sky_background_windowed(head_sky, rec.idx, rec.fx, rec.fy, eff, masked,
                                     lib=lib)
     ms = {
         "record": event_ms(lambda: pc._record_cuda(*hargs, lib)),
-        # the replay's kernels on a built plan (step list and I, T allocated)
+        # the replay's kernels on a built plan (step list and I, T allocated):
+        # every round, the empty ones included, and the per-ray kernel
         "replay": event_ms(lambda: pc._replay(scene, rec.rec, 1.0, hplan, lib)),
         "sky": event_ms(lambda: ps.sky_background_windowed(head_sky, rec.idx, rec.fx,
                                                            rec.fy, eff, masked, lib=lib)),
     }
-    plan_ms = event_ms(lambda: pc.replay_plan(rec.total, hcap))
+    plan_ms = event_ms(lambda: pc.replay_plan(rec.total, hcap, rounds=hrounds, lib=lib))
+    # the replay stage as the frame runs it (plan, every round, the per-ray
+    # kernel), and with its plan cut to one round: the rounds this frame
+    # leaves empty cost the difference
+    stage_ms = {n_r: event_ms(lambda n_r=n_r: pc._replay(
+        scene, rec.rec, 1.0, pc.replay_plan(rec.total, hcap, rounds=n_r, lib=lib), lib))
+        for n_r in (hrounds, 1)}
 
-    # the replay's passes one by one, on the frame's step list
+    # the replay's passes one by one (round 0, which holds every step), on
+    # the frame's step list; the rounds kernel alone; the empty rounds
     consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
     pos, vel, emit = pc.step_list(hcap, dev)
     i_l, t_l = torch.zeros((3, hh, hw), device=dev), torch.ones((hh, hw), device=dev)
+    csum = torch.cat([hplan.offsets, hplan.counts[2:3]])
+    tbl, cnt = torch.empty_like(hplan.rounds), torch.empty_like(hplan.counts)
     pass_ms = {
-        "replay_march": event_ms(lambda: lib.replay_march(consts, rec.rec, hplan, pos, vel,
+        "replay_rounds": event_ms(lambda: lib.replay_rounds(csum, hplan.counts[0], hcap, tbl,
+                                                            cnt, stream)),
+        "replay_march": event_ms(lambda: lib.replay_march(consts, rec.rec, hplan, 0, pos, vel,
                                                           stream)),
-        "replay_shade_disk": event_ms(lambda: lib.replay_shade(consts, 1.0, "disk", hplan, pos,
-                                                               vel, emit, stream)),
+        "replay_shade_disk": event_ms(lambda: lib.replay_shade(consts, 1.0, "disk", hplan, 0,
+                                                               pos, vel, emit, stream)),
         # the cloud pass finishes what the disk pass wrote: time the two, less the disk's
         "replay_shade_cloud": event_ms(lambda: (
-            lib.replay_shade(consts, 1.0, "disk", hplan, pos, vel, emit, stream),
-            lib.replay_shade(consts, 1.0, "cloud", hplan, pos, vel, emit, stream))),
-        "replay_composite": event_ms(lambda: lib.replay_composite(hplan, emit, i_l, t_l,
+            lib.replay_shade(consts, 1.0, "disk", hplan, 0, pos, vel, emit, stream),
+            lib.replay_shade(consts, 1.0, "cloud", hplan, 0, pos, vel, emit, stream))),
+        "replay_composite": event_ms(lambda: lib.replay_composite(hplan, 0, emit, i_l, t_l,
                                                                   stream)),
-        # every ray fits: the launch exits at once
+        # every ray in round 0: the launch exits at once
         "replay_overflow": event_ms(lambda: lib.replay_overflow(consts, 1.0, rec.rec, hplan,
                                                                 i_l, t_l, stream)),
     }
     pass_ms["replay_shade_cloud"] -= pass_ms["replay_shade_disk"]
+    empty_ms = event_ms(lambda: [pc.replay_round(lib, consts, scene, 1.0, rec.rec, hplan, r, pos,
+                                                 vel, emit, i_l, t_l, stream)
+                                 for r in range(1, hrounds)])
+    if not (torch.equal(tbl, hplan.rounds) and torch.equal(cnt, hplan.counts)):
+        raise AssertionError("the rounds kernel rebuilt another table")
     lengths = pc.step_lengths(rec.rec, horder)
-    list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit)) + hplan.offsets.numel() * 8
+    list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit))
     seg = rec.rec[:, 6].reshape(pc.SLOTS, -1)
     seg = seg[seg > 0]
     replay_shape = (f"longest ray {int(lengths.max())} steps, longest segment "
                     f"{int(seg.max())}, rays over 1000 steps {int((lengths > 1000).sum())}, "
                     f"segments {seg.numel()}")
-    if hsteps > hcap:
-        raise AssertionError(f"the headline's {hsteps} steps exceed the step list's {hcap}")
+    if hplan.rounds[0].tolist() != [0, horder.numel(), 0, hsteps]:
+        raise AssertionError(f"the headline's round 0 does not hold every step: {hplan.rounds}")
 
-    # the per-ray overflow kernel at work: a step list of half the steps
-    half = pc.replay_plan(rec.total, hsteps // 2)
-    m_all, m_half, _, s_half = half.counts.tolist()
-    ov_sel = half.order[m_half:m_all].long()
-    n_ov = hsteps - s_half
-    # the overflow rays' steps are the unforced list's entries s_half.. (the
-    # same order and offsets): their probes size the kernel's bound
-    ov_rel = Vec3(pos[s_half:hsteps, 0], pos[s_half:hsteps, 1], pos[s_half:hsteps, 2])
+    # forced step lists: of 1 step (every ray longer than it to the per-ray
+    # kernel), of a third of the steps (at least 3 rounds) and of half (the
+    # tail past the first half of the steps through the rounds); each
+    # bitwise the plain replay of every ray, with each round's ms. The
+    # plain replay runs the per-ray kernel's rays at one step apart (its
+    # plain time) from the few that rounds of one step take.
+    one = pc.replay_plan(rec.total, 1, lib=lib)
+    p_one, r_one = one.rounds[0, 0].item(), one.rounds[-1].tolist()
+    end_one = r_one[0] + r_one[1]
+    ov_sel = torch.cat([horder[:p_one], horder[end_one:]]).long()
+    (ov_i, ov_t), ov_plain_ms = sync_ms(lambda: pc._replay_plain(scene, rec.rec, 1.0, ov_sel))
+    in_sel = horder[p_one:end_one].long()
+    in_i, in_t = pc._replay_plain(scene, rec.rec, 1.0, in_sel)
+    want_all = torch.cat([torch.zeros((3, hh * hw), device=dev), torch.ones((1, hh * hw),
+                                                                           device=dev)])
+    for sel_, i_, t_ in ((ov_sel, ov_i, ov_t), (in_sel, in_i, in_t)):
+        want_all[:3, sel_], want_all[3, sel_] = i_, t_
+    unforced = torch.cat([torch.stack(list(inten)).reshape(3, -1), trans.reshape(1, -1)])
+    # the per-ray kernel's rays at one step: their steps are the unforced
+    # list's entries outside the rounds' rays (the same order and offsets);
+    # their probes size the kernel's bound
+    off = hplan.offsets
+    keep = torch.ones(hsteps, dtype=torch.bool, device=dev)
+    keep[off[p_one]:(off[end_one] if end_one < off.numel() else hsteps)] = False
+    ov_rel = Vec3(pos[:hsteps, 0][keep], pos[:hsteps, 1][keep], pos[:hsteps, 2][keep])
     ov_r2 = ov_rel.x * ov_rel.x + ov_rel.y * ov_rel.y + ov_rel.z * ov_rel.z
     ov_zd, ov_zc = march_mod.media_zones(scene, ov_rel, ov_r2)
     ov_pd, ov_pc = march_mod.media_probes(scene, ov_rel, ov_zd, ov_zc, torch.ones_like(ov_zd))
-    overflow_work = (n_ov, int(ov_pd.sum()), int(ov_pc.sum()),
+    overflow_work = (int(keep.sum()), int(ov_pd.sum()), int(ov_pc.sum()),
                      ov_sel.numel() * (4 * 7 * pc.SLOTS + 4 + 16))
-    del pos, vel, emit, ov_rel, ov_r2, ov_zd, ov_zc, ov_pd, ov_pc
-    fi, ft = pc._replay(scene, rec.rec, 1.0, half, lib)
-    forced_same = bool(torch.equal(torch.stack(list(fi)), torch.stack(list(inten)))
-                       and torch.equal(ft, trans))
-    ms["replay_overflow"] = event_ms(lambda: lib.replay_overflow(consts, 1.0, rec.rec, half,
-                                                                 i_l, t_l, stream))
-    (ov_i, ov_t), ov_plain_ms = sync_ms(lambda: pc._replay_plain(scene, rec.rec, 1.0, ov_sel))
-    got_ov = torch.cat([torch.stack(list(fi)).reshape(3, -1)[:, ov_sel],
-                        ft.reshape(-1)[ov_sel][None]])
-    want_ov = torch.cat([ov_i, ov_t[None]])
-    errs["replay_overflow"] = max(errs["replay_overflow"],
-                                  (got_ov - want_ov).abs().max().item())
-    print(f"phase 5 replay_overflow at capacity {hsteps // 2} (half the steps): {m_all - m_half} "
-          f"of {m_all} rays, {n_ov} steps past the list; kernel {ms['replay_overflow']:.3f} ms, "
-          f"plain {ov_plain_ms:.1f} ms; frame's (I, T) bitwise the unforced replay's "
-          f"{forced_same}, the overflow rays bitwise the plain replay "
-          f"{bool(torch.equal(got_ov, want_ov))}; on the main path (every ray fits) its launch "
-          f"{pass_ms['replay_overflow']:.4f} ms", flush=True)
-    if not (forced_same and torch.equal(got_ov, want_ov)):
-        raise AssertionError("the per-ray overflow kernel is not bitwise")
+    # the rays past the first round at half the steps (its second round's
+    # base on): their steps are the unforced list's entries from there
+    half_rows = pc.replay_plan(rec.total, hsteps // 2, lib=lib).rounds.tolist()
+    t_rel = Vec3(*(pos[half_rows[1][2]:hsteps, c] for c in range(3)))
+    t_r2 = t_rel.x * t_rel.x + t_rel.y * t_rel.y + t_rel.z * t_rel.z
+    t_zd, t_zc = march_mod.media_zones(scene, t_rel, t_r2)
+    t_pd, t_pc = march_mod.media_probes(scene, t_rel, t_zd, t_zc, torch.ones_like(t_zd))
+    tail_work = (hsteps - half_rows[1][2], int(t_pd.sum()), int(t_pc.sum()),
+                 (horder.numel() - half_rows[1][0]) * (4 * 7 * pc.SLOTS + 4 + 16))
+    del pos, vel, emit, keep, ov_rel, ov_r2, ov_zd, ov_zc, ov_pd, ov_pc
+    del t_rel, t_r2, t_zd, t_zc, t_pd, t_pc
+    forced = {}
+    for name, cap in (("one step", 1), ("a third", hsteps // 3), ("half", hsteps // 2)):
+        plan = pc.replay_plan(rec.total, cap, lib=lib)
+        fi, ft = pc._replay(scene, rec.rec, 1.0, plan, lib)
+        fgot = torch.cat([torch.stack(list(fi)).reshape(3, -1), ft.reshape(1, -1)])
+        same = bool(torch.equal(fgot, want_all) and torch.equal(fgot, unforced))
+        r_ms, ov_ms = round_ms(pc, lib, scene, rec.rec, 1.0, plan, dev)
+        m_all, m_r, _, s_r = plan.counts.tolist()
+        used = [r for r in plan.rounds.tolist() if r[1]]
+        forced[name] = dict(capacity=cap, round_ms=r_ms, per_ray_ms=ov_ms, rounds_used=len(used),
+                            per_ray_rays=m_all - m_r, per_ray_steps=hsteps - s_r,
+                            tail_ms=sum(r_ms[1:]) + ov_ms)
+        print(f"phase 5 replay at capacity {cap} ({name}): rounds with rays {len(used)} of "
+              f"{len(r_ms)} (rays {[r[1] for r in used]}, steps {[r[3] for r in used]}), "
+              f"{m_all - m_r} rays and {hsteps - s_r} steps to the per-ray kernel; round ms "
+              f"{[round(x, 4) for x in r_ms]}, per-ray kernel {ov_ms:.4f} ms; past the first "
+              f"round {forced[name]['tail_ms']:.4f} ms; (I, T) bitwise the plain replay and the "
+              f"unforced replay {same}", flush=True)
+        if not same:
+            raise AssertionError(f"the replay at capacity {cap} is not bitwise")
+        if name == "a third" and len(used) < 3:
+            raise AssertionError(f"a third of the steps ran {len(used)} rounds, not 3 or more")
+    ms["replay_overflow"] = forced["one step"]["per_ray_ms"]
+    errs["replay_overflow"] = max(errs["replay_overflow"], (unforced - want_all).abs().max().item())
+    print(f"phase 5 per-ray kernel at a step list of 1 step: {ov_sel.numel()} of "
+          f"{horder.numel()} rays, {overflow_work[0]} steps; kernel {ms['replay_overflow']:.3f} ms, "
+          f"plain {ov_plain_ms:.1f} ms; on the main path (every ray in round 0) its launch "
+          f"{pass_ms['replay_overflow']:.4f} ms; at half the steps the tail through the rounds "
+          f"{forced['half']['tail_ms']:.4f} ms", flush=True)
 
     # the same frame through the plain versions, on the card, stage by stage
     t_start = time.perf_counter()
@@ -1495,10 +1588,13 @@ def main() -> None:
     for name in launches:
         print(f"  {name}: kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.1f} ms")
     print(f"  replay bookkeeping on the device (replay_plan: sort of {hw * hh} keys, offsets, "
-          f"counts): {plan_ms:.3f} ms; replay kernels (CUDA events): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in pass_ms.items())
-          + f"; step list: capacity {hcap} entries, {list_bytes / 2**20:.1f} MiB, holding "
-          f"{hsteps} steps; {replay_shape}", flush=True)
+          f"the rounds kernel): {plan_ms:.3f} ms; replay kernels (CUDA events; the passes in "
+          f"round 0): " + ", ".join(f"{k} {v:.4f} ms" for k, v in pass_ms.items())
+          + f"; the {hrounds - 1} empty rounds ({4 * (hrounds - 1)} launches) {empty_ms:.4f} ms; "
+          f"replay stage (plan, {hrounds} rounds, per-ray kernel) {stage_ms[hrounds]:.4f} ms, "
+          f"with its plan cut to one round {stage_ms[1]:.4f} ms; step list: capacity {hcap} "
+          f"entries, {list_bytes / 2**20:.1f} MiB ({list_bytes} B), holding {hsteps} steps; "
+          f"{replay_shape}", flush=True)
     if not ok_frame:
         raise AssertionError(f"bad frame {frame_np.shape} {frame_np.dtype}")
     if not head_rmse < 1e-3:
@@ -1507,6 +1603,11 @@ def main() -> None:
         raise AssertionError(f"a kernel of the frame path never launched: {lib.launches}")
     if launches["replay_overflow"] != 1 or launches["sky"] != 1:
         raise AssertionError(f"the compact frame's per-frame kernels: {lib.launches}")
+    if pass_launches["replay_rounds"] != 1 or any(
+            pass_launches[k] != hrounds for k in ("replay_march", "replay_shade_disk",
+                                                  "replay_shade_cloud", "replay_composite")):
+        raise AssertionError(f"the compact frame's replay ran other than {hrounds} rounds: "
+                             f"{pass_launches}")
 
     # the inline frame (march_sky), against the compact frame
     inline_settings = RenderSettings(width=hw, height=hh, media_pass="inline")
@@ -1543,6 +1644,50 @@ def main() -> None:
           flush=True)
     if not (launches["march_camera"] >= 1 and nosky_np.shape == (hh, hw, 4)):
         raise AssertionError(f"no-sky headline frame: {lib.launches}")
+
+    # the headline pose at 4K and 8K through the compact program: its step
+    # list stays within the budget; bitwise the inline frame
+    big_frames = {}
+    for bw, bh in ((3840, 2160), (7680, 4320)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        big = Renderer(scene, RenderSettings(width=bw, height=bh), skybox=head_sky, device=dev)
+        lib.reset_launches()
+        big_c, first_ms = sync_ms(lambda: big.render(hcam, eff, 1.0))
+        big_launches = {k: v for k, v in lib.launches.items() if v}
+        big_peak = torch.cuda.max_memory_allocated(dev)
+        _, big_ms = sync_ms(lambda: big.render(hcam, eff, 1.0), reps=2)
+        big_i = Renderer(scene, RenderSettings(width=bw, height=bh, media_pass="inline"),
+                         skybox=head_sky, device=dev)
+        big_i_frame, _ = sync_ms(lambda: big_i.render(hcam, eff, 1.0))
+        _, big_i_ms = sync_ms(lambda: big_i.render(hcam, eff, 1.0), reps=2)
+        equal = bool(torch.equal(big_c, big_i_frame))
+        big_rec = pc._record_cuda(scene, hscal, bw, bh, scene.max_steps, pc.SLOTS,
+                                  *head_sky.shape, dev, lib)
+        big_cap = pc.step_capacity(bw * bh, scene.max_steps)
+        big_rounds = pc.replay_rounds(bw * bh, scene.max_steps, big_cap)
+        big_plan = pc.replay_plan(big_rec.total, big_cap, rounds=big_rounds, lib=lib)
+        m_b, m_rb, s_b, _ = big_plan.counts.tolist()
+        used_b = int((big_plan.rounds[:, 1] > 0).sum())
+        del big_rec, big_plan
+        big_frames[f"{bw}x{bh}"] = dict(compact_ms=big_ms, inline_ms=big_i_ms,
+                                        list_bytes=big_cap * 40, peak_bytes=big_peak,
+                                        bitwise=equal)
+        print(f"phase 5 headline pose at {bw}x{bh} ({smi}): compact {big_ms:.3f} ms a frame "
+              f"(synchronized, mean of 2; first {first_ms:.1f} ms), inline {big_i_ms:.3f} ms; "
+              f"bitwise the inline frame {equal}; step list {big_cap} entries = {big_cap * 40} B "
+              f"({big_cap * 40 / 2**30:.2f} GiB); {s_b} steps of {m_b} rays in {used_b} of "
+              f"{big_rounds} rounds, {m_b - m_rb} rays to the per-ray kernel; "
+              f"max_memory_allocated {big_peak / 2**20:.0f} MiB ({(big_peak - base) / 2**20:.0f} "
+              f"MiB over the {base / 2**20:.0f} MiB held before); launches {big_launches}",
+              flush=True)
+        if not equal or big_cap > pc.STEP_BUDGET:
+            raise AssertionError(f"{bw}x{bh}: compact frame not bitwise inline ({equal}) or "
+                                 f"list of {big_cap} entries")
+        del big, big_i, big_c, big_i_frame
+    torch.cuda.empty_cache()
 
     # kernel times of the fused march at the headline shapes
     steps_h = scene.max_steps
@@ -1626,20 +1771,25 @@ def main() -> None:
     print(f"  sky bytes: {npx} pixels x 25 B, {n_quads} distinct quads x 16 B", flush=True)
 
     # the replay's traffic on the default paths, each second, at the cinema,
-    # native and realtime sizes: steps a pixel, the frames past the step
-    # list, and their replay bitwise a list that holds every step
+    # native and realtime sizes: steps a pixel, the rounds each frame uses,
+    # the rays left to the per-ray kernel, and each replay bitwise one list
+    # that holds every step
     t0 = time.perf_counter()
     traffic = replay_traffic.survey(every=1.0, lib=lib)
+    traffic_totals = replay_traffic.totals(traffic)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "replay_traffic.json").write_text(
-        json.dumps(dict(device=kind, power=smi, every=1.0, rows=traffic), indent=1))
+        json.dumps(dict(device=kind, power=smi, every=1.0, rows=traffic, totals=traffic_totals),
+                   indent=1))
     print(f"phase 5 replay traffic ({len(traffic)} frames, {time.perf_counter() - t0:.1f} s; "
-          f"step list {pc.STEPS_PER_PIXEL} entries a pixel; chiprun_out/replay_traffic.json):",
-          flush=True)
+          f"step list budget {pc.STEP_BUDGET} entries, at most {pc.ROUNDS} rounds; "
+          f"chiprun_out/replay_traffic.json):", flush=True)
     for line in replay_traffic.summary(traffic):
         print("  " + line, flush=True)
+    print("  totals by size (frames denser than 64 steps a pixel: replay ms summed against one "
+          f"list's): {json.dumps(traffic_totals)}", flush=True)
     if not all(r["bitwise"] for r in traffic):
-        raise AssertionError("a replay past the step list differs from the fitting list's")
+        raise AssertionError("a replay in rounds differs from one list's")
 
     # ---- phase 6: FMA contraction A/B
     t0 = time.perf_counter()
@@ -1825,14 +1975,18 @@ def main() -> None:
 
     # ---- phase 10: the probes, and each frame kernel's measured floor
     t_phase = time.perf_counter()
-    probe_rows, floors = phase10_probes(
+    probe_rows, floors, tail_floor = phase10_probes(
         lib, dev, n_sms, (n_steps, n_disk, n_cloud), n_replay,
-        horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16), sky_bytes, overflow_work)
+        horder.numel() * (4 * 7 * pc.SLOTS + 4 + 16), sky_bytes, overflow_work, tail_work)
     for name, (f_ms, f_by, sass_ms) in floors.items():
         floor = f"measured floor {f_ms:.4f} ms ({f_by}; kernel at {f_ms / ms[name]:.3f} of it)"
         diag = "" if sass_ms is None else f", SASS shortest-iteration time {sass_ms:.3f} ms"
         print(f"  {name}: kernel {ms[name]:.4f} ms, {floor}{diag}, 67e12 bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
+    half_tail = forced["half"]["tail_ms"]
+    print(f"  the half-capacity tail through the rounds ({tail_work[0]} steps): "
+          f"{half_tail:.4f} ms, measured floor {tail_floor:.4f} ms (at {tail_floor / half_tail:.3f} "
+          f"of it)", flush=True)
     # the compact shard grid's 8 record launches do the full-frame record's work
     rec_floor = floors["record"][0]
     print(f"  compact shard grid: 8 record launches {sum(shard_record_ms):.3f} ms against the "
@@ -1861,12 +2015,21 @@ def main() -> None:
                        floor_ms=floors[name][0], floor_by=floors[name][1],
                        sass_floor_ms=floors[name][2])
             for name in floors}
+    rows["replay"].update(round0_passes_ms=sum(v for k, v in pass_ms.items()
+                                               if k not in ("replay_rounds", "replay_overflow")),
+                          rounds_kernel_ms=pass_ms["replay_rounds"], empty_rounds_ms=empty_ms,
+                          rounds=hrounds, plan_ms=plan_ms, stage_ms=stage_ms[hrounds],
+                          stage_one_round_ms=stage_ms[1])
     rows["replay_overflow"]["main_path_ms"] = pass_ms["replay_overflow"]
+    rows["replay_overflow"]["forced"] = forced
+    rows["replay_overflow"].update(half_tail_ms=half_tail, half_tail_floor_ms=tail_floor)
     rows["sky"]["inline_ms"] = ms_sky_inline
     rows["sky"]["inline_shards_ms"] = sum(kernel_ms)  # phase 8: 8 shard launches, held stream
     rows.update(probe_rows)
+    rows["replay"]["big_frames"] = big_frames
     table = {"kernels": [dict(name=name, route="cuda", source=src, replaces=rep, **rows[name])
                          for name, (src, rep, _) in KERNELS.items()]}
+    print(f"chip_smoke took {time.perf_counter() - t_main:.1f} s", flush=True)
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -179,9 +179,10 @@ class RenderSettings:
     Field for field the JAX package's settings. In the port `loop`,
     `chunk`, `media_capacity` and `sky_gather` are accepted and validated
     but select nothing: the renderer's device picks kernels or plain
-    versions, the replay's step list is sized per pixel of the frame
-    (ops/pallas_compact.step_capacity; rays past it are replayed per ray,
-    with the same result), and the sky is a direct per-pixel gather.
+    versions, the replay's step list is sized by the frame, at most a fixed
+    budget (ops/pallas_compact.step_capacity; the replay runs in rounds over
+    it, rays past them are replayed per ray, with the same result), and the
+    sky is a direct per-pixel gather.
     `media_pass` picks the frame program: "compact" (record + replay) or
     "inline" (the fused march)."""
 

@@ -317,11 +317,24 @@ def order_from_keys(keys: torch.Tensor) -> torch.Tensor:
     return torch.argsort(expensive.to(torch.int32), descending=True, stable=True).to(torch.int32)
 
 
-# The replay's kernels (csrc/replay.cu): march, disk and cloud shading,
-# compositing, and the per-ray replay of the rays past the step list's
-# capacity; each launch counts under its own name.
-REPLAY_PASSES = ("replay_march", "replay_shade_disk", "replay_shade_cloud", "replay_composite",
-                 "replay_overflow")
+# The replay's kernels (csrc/replay.cu): the plan's round table, march,
+# disk and cloud shading, compositing (the passes, once a round), and the
+# per-ray replay of the rays the rounds do not take; each launch counts
+# under its own name.
+REPLAY_PASSES = ("replay_rounds", "replay_march", "replay_shade_disk", "replay_shade_cloud",
+                 "replay_composite", "replay_overflow")
+# Waves of resident blocks a replay grid holds at most: round 0's passes and
+# the per-ray kernel, then the later rounds' passes. Measured on an H100
+# over the default paths' frames (tools/replay_traffic.py): one wave leaves
+# the shade passes' uneven steps unbalanced (the headline's replay 3.48 ms),
+# one thread an item pays ~1 ms for the empty blocks of a large step list
+# (4.30 ms), four waves 3.31 ms. A later round is empty on most frames and
+# then costs its launches alone: the headline's 6 empty rounds took 0.070
+# ms at one wave and 0.130 at four; a later round with rays holds up to a
+# full list, where one wave took 1.85 ms against 1.71 at four (the
+# headline forced to half its steps; H100).
+REPLAY_WAVES = 4
+ROUND_WAVES = 1
 # The measurement probes (csrc/probes.cu): tools/roofline.py's op chains and
 # tools/sky_primitives.py's block-resident gather.
 PROBES = ("chain", "take_along")
@@ -406,10 +419,11 @@ class KernelLibrary:
             "scene_consts_size": [],
             "ray_grid_size": [],
             "record": [sc, cam, ctypes.POINTER(RayGrid)] + [ci] * 6 + [vp] * 7,
-            "replay_march": [sc, ci, ci, ci] + [vp] * 7,
-            "replay_shade": [sc, cf, ci, cl] + [vp] * 5,
-            "replay_composite": [ci, ci] + [vp] * 7,
-            "replay_overflow": [sc, cf, ci, ci, ci] + [vp] * 6,
+            "replay_rounds": [vp, vp, cl, ci, vp, vp, vp],
+            "replay_march": [sc, ci, cl, ci, ci] + [vp] * 7,
+            "replay_shade": [sc, cf, ci, cl, ci] + [vp] * 5,
+            "replay_composite": [ci, cl, ci] + [vp] * 7,
+            "replay_overflow": [sc, cf, ci, cl, ci, ci, ci] + [vp] * 7,
             "sky": [cl, ci] + [vp] * 10,
             "march_sky": [sc, cam] + [ci] * 5 + [vp] * 7,
             "march_camera": [sc, cam] + [ci] * 3 + [vp] * 6,
@@ -457,67 +471,87 @@ class KernelLibrary:
                 fx.data_ptr(), fy.data_ptr(), rec.data_ptr(), total.data_ptr(), stream)
         self._launched("record", err)
 
-    def replay_march(self, consts, rec, plan, pos, vel, stream) -> None:
-        """Pass 1: each recorded segment of the rays in the step list (the
-        first m_c of `plan`, ops/pallas_compact.ReplayPlan) -> its steps'
-        PRE-step rel and POST-step v, `pos` [C, 4] (rel, v.x) and `vel`
-        [C, 2] (v.y, v.z), from its ray's offset on."""
+    def replay_rounds(self, csum, listed, capacity, table, counts, stream) -> None:
+        """The plan's round table (ops/pallas_compact.replay_plan): from
+        `csum` [L + 1] int64 (0, then the listed rays' step ends along the
+        list) and `listed` (int64 scalar, m) on the card, each round's (first
+        listed ray, rays, base, steps) to `table` [R, 4] and (m, m_r, S,
+        S_r) to `counts` [4]; one block, no host sync."""
+        rounds = table.shape[0]
+        check("replay_rounds", [(csum, torch.int64, tuple(csum.shape)),
+                                (listed, torch.int64, ()), (table, torch.int64, (rounds, 4)),
+                                (counts, torch.int64, (4,))])
+        if rounds < 1 or capacity < 1:
+            raise ValueError(f"replay_rounds: {rounds} rounds of a {capacity}-entry list")
+        with torch.cuda.device(csum.device):
+            err = self._lib.rrt_replay_rounds(csum.data_ptr(), listed.data_ptr(), capacity, rounds,
+                                              table.data_ptr(), counts.data_ptr(), stream)
+        self._launched("replay_rounds", err)
+
+    def replay_march(self, consts, rec, plan, r, pos, vel, stream) -> None:
+        """Pass 1 of round `r` of `plan` (ops/pallas_compact.ReplayPlan):
+        each recorded segment of the round's rays -> its steps' PRE-step rel
+        and POST-step v, `pos` [C, 4] (rel, v.x) and `vel` [C, 2] (v.y,
+        v.z), from its ray's offset less the round's base on."""
         slots, _, h, w = rec.shape
         rays, cap = plan.order.numel(), pos.shape[0]
         check("replay_march", [(rec, torch.float32, (slots, 7, h, w))] + _plan_specs(plan)
               + [(pos, torch.float32, (cap, 4)), (vel, torch.float32, (cap, 2))])
         with torch.cuda.device(rec.device):
             err = self._lib.rrt_replay_march(
-                ctypes.byref(consts), h * w, rays, slots, plan.counts.data_ptr(), rec.data_ptr(),
-                plan.order.data_ptr(), plan.offsets.data_ptr(), pos.data_ptr(), vel.data_ptr(),
-                stream)
+                ctypes.byref(consts), h * w, min(rays, cap), slots, _waves(r), _row(plan, r),
+                rec.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(), pos.data_ptr(),
+                vel.data_ptr(), stream)
         self._launched("replay_march", err)
 
-    def replay_shade(self, consts, time, medium, plan, pos, vel, emit, stream) -> None:
-        """Pass 2, one thread per entry of the step list (those past the
-        plan's S_c return at once): medium "disk" writes each step's (r, g,
-        b, transmittance) to `emit` [C, 4] (the opacity in place of the
-        transmittance on cloud-probe steps); "cloud" then adds its terms to
-        those steps and writes their transmittance."""
+    def replay_shade(self, consts, time, medium, plan, r, pos, vel, emit, stream) -> None:
+        """Pass 2 of round `r`, one thread per entry of the step list (those
+        past the round's steps return at once): medium "disk" writes each
+        step's (r, g, b, transmittance) to `emit` [C, 4] (the opacity in
+        place of the transmittance on cloud-probe steps); "cloud" then adds
+        its terms to those steps and writes their transmittance."""
         cap = pos.shape[0]
-        check(f"replay_shade_{medium}", [(plan.counts, torch.int64, (4,)),
+        check(f"replay_shade_{medium}", [(plan.rounds, torch.int64, (plan.rounds.shape[0], 4)),
                                          (pos, torch.float32, (cap, 4)),
                                          (vel, torch.float32, (cap, 2)),
                                          (emit, torch.float32, (cap, 4))])
         with torch.cuda.device(pos.device):
             err = self._lib.rrt_replay_shade(
-                ctypes.byref(consts), time, ("disk", "cloud").index(medium), cap,
-                plan.counts.data_ptr(), pos.data_ptr(), vel.data_ptr(), emit.data_ptr(), stream)
+                ctypes.byref(consts), time, ("disk", "cloud").index(medium), cap, _waves(r),
+                _row(plan, r), pos.data_ptr(), vel.data_ptr(), emit.data_ptr(), stream)
         self._launched(f"replay_shade_{medium}", err)
 
-    def replay_composite(self, plan, emit, intensity, trans, stream) -> None:
-        """Pass 3: each ray of the step list composites its steps in order
-        and writes I and T to its pixel of `intensity` [3, H, W] and `trans`
-        [H, W]."""
+    def replay_composite(self, plan, r, emit, intensity, trans, stream) -> None:
+        """Pass 3 of round `r`: each of the round's rays composites its
+        steps in order and writes I and T to its pixel of `intensity` [3, H,
+        W] and `trans` [H, W]."""
         h, w = trans.shape
+        cap = emit.shape[0]
         check("replay_composite", _plan_specs(plan)
-              + [(emit, torch.float32, (emit.shape[0], 4)),
+              + [(emit, torch.float32, (cap, 4)),
                  (intensity, torch.float32, (3, h, w)), (trans, torch.float32, (h, w))])
         with torch.cuda.device(trans.device):
             err = self._lib.rrt_replay_composite(
-                h * w, plan.order.numel(), plan.counts.data_ptr(), plan.order.data_ptr(),
-                plan.offsets.data_ptr(), emit.data_ptr(), intensity.data_ptr(),
-                trans.data_ptr(), stream)
+                h * w, min(plan.order.numel(), cap), _waves(r), _row(plan, r),
+                plan.order.data_ptr(), plan.offsets.data_ptr(), emit.data_ptr(),
+                intensity.data_ptr(), trans.data_ptr(), stream)
         self._launched("replay_composite", err)
 
     def replay_overflow(self, consts, time, rec, plan, intensity, trans, stream) -> None:
-        """The listed rays past the step list's capacity (m_c <= j < m of
-        `plan`), one thread per ray: march, shade and composite inline in
-        the passes' order; writes their I and T. Launched every frame; it
-        exits at once where every ray fits."""
+        """The listed rays the rounds of `plan` do not take (before round 0,
+        longer than the list, and past the last round), one thread per ray:
+        march, shade and composite inline in the passes' order; writes their
+        I and T. Launched every frame; it exits at once where the rounds
+        take every ray."""
         slots, _, h, w = rec.shape
         check("replay_overflow", [(rec, torch.float32, (slots, 7, h, w))] + _plan_specs(plan)
               + [(intensity, torch.float32, (3, h, w)), (trans, torch.float32, (h, w))])
         with torch.cuda.device(rec.device):
             err = self._lib.rrt_replay_overflow(
-                ctypes.byref(consts), time, h * w, plan.order.numel(), slots,
-                plan.counts.data_ptr(), rec.data_ptr(), plan.order.data_ptr(),
-                intensity.data_ptr(), trans.data_ptr(), stream)
+                ctypes.byref(consts), time, h * w, plan.order.numel(), slots, REPLAY_WAVES,
+                plan.rounds.shape[0], plan.rounds.data_ptr(), plan.counts.data_ptr(),
+                rec.data_ptr(), plan.order.data_ptr(), intensity.data_ptr(), trans.data_ptr(),
+                stream)
         self._launched("replay_overflow", err)
 
     def sky(self, use_q4, idx, fx, fy, masked, qr, qg, qb, q4, bg, stream) -> None:
@@ -674,10 +708,23 @@ class KernelLibrary:
 
 def _plan_specs(plan):
     """Check specs of a replay plan (ops/pallas_compact.ReplayPlan): order
-    int32 and offsets int64 of one length, counts int64 [4]."""
+    int32 and offsets int64 of one length, counts int64 [4], the round
+    table int64 [R, 4]."""
     rays = plan.order.numel()
     return [(plan.order, torch.int32, (rays,)), (plan.offsets, torch.int64, (rays,)),
-            (plan.counts, torch.int64, (4,))]
+            (plan.counts, torch.int64, (4,)), (plan.rounds, torch.int64, (plan.rounds.shape[0], 4))]
+
+
+def _row(plan, r: int) -> int:
+    """Device address of round `r`'s row of the plan's table."""
+    if not 0 <= r < plan.rounds.shape[0]:
+        raise ValueError(f"round {r} of a {plan.rounds.shape[0]}-round plan")
+    return plan.rounds.data_ptr() + r * 4 * plan.rounds.element_size()
+
+
+def _waves(r: int) -> int:
+    """Waves of blocks a replay pass's grid holds in round `r`."""
+    return REPLAY_WAVES if r == 0 else ROUND_WAVES
 
 
 def _state_specs(shape, intensity, trans, hit, vel):

@@ -21,13 +21,15 @@ emission and zero opacity wherever they are False. So the march splits:
      march (one thread per recorded segment: each step's pre-step rel and
      post-step v), shade (one thread per step: disk, then cloud, the last
      one also the step's transmittance) and composite (one thread per ray,
-     its steps in order). A ray's offset into the list is the exclusive
-     prefix sum of the listed rays' lengths (`step_offsets`). The list
-     order, the offsets and the counts are built on the device
-     (`replay_plan`), and the list is allocated at a capacity fixed on the
-     host (`step_capacity`): no launch waits for the device. The rays past
-     the capacity are replayed by a per-ray kernel, so the frame is exact
-     for every pose.
+     its steps in order). A ray's offset is the exclusive prefix sum of
+     the listed rays' lengths (`step_offsets`). The list is allocated at a
+     capacity fixed on the host (`step_capacity`, at most STEP_BUDGET
+     entries), and the passes run in rounds over it: each round replays
+     the next rays whose steps fit it, from the round's base offset. The
+     list order, the offsets, the counts and the round table are built on
+     the device (`replay_plan`): no launch waits for the device. The rays
+     longer than the list and those past the last round are replayed by a
+     per-ray kernel, so the frame is exact for every pose.
 
 Each pass has a hand-written CUDA kernel (csrc/record.cu, csrc/replay.cu)
 and its plain PyTorch version (`_record_plain`, `_replay_plain`, which is
@@ -327,17 +329,25 @@ def _replay_plain_sorted(scene: SceneConfig, rec: torch.Tensor, time,
 
 
 # Replay lengths are integers below 2^24 (exact in float32): the order key's
-# length field.
+# length field, and no ray is longer than a list of this many entries.
 _LEN_LIMIT = 1 << 24
-# Step-list entries per pixel of the frame. On the three default camera
-# paths, sampled each second, a frame's replay needs 5.4 to 399 steps a
-# pixel (medians 20, 38 and 71 at 1080p; the headline pose 10.3), and the
-# presets' frames as many (tools/replay_traffic.py, PERF.md). 64 holds
-# every 1080p frame of the Event Horizon Focus path and all but 3 of the
-# Fly-By's, at 40 B a step 5.3 GB at 1080p; the rest send their tail to
-# the per-ray kernel, which on those frames takes a median ~1.9x the
-# passes' ~0.16 ms per million steps (H100).
-STEPS_PER_PIXEL = 64
+# The step list's budget: at most 2^27 entries (5.4 GB at 40 B a step) for
+# a frame of any size, at least a 1080p list of 64 steps a pixel
+# (132,710,400 entries). The default camera paths, sampled each second at
+# three sizes (tools/replay_traffic.py, PERF.md), need 5.4 to 399 steps a
+# pixel: at most 827.9M steps a frame at 1080p, 268.0M at 1000x700 and
+# 52.1M at 480x272. 2^27 holds every 480x272 frame and all but 4 of the
+# 1000x700 and 19 of the 1080p ones in one round; a list of 64 steps a
+# pixel would take 21 GB at 3840x2160 and 85 GB at 7680x4320, more than
+# the card's 80 GB.
+STEP_BUDGET = 1 << 27
+# Rounds of the replay passes over the list, at most: the surveyed 1080p
+# frames need 1 to 7 (827.9M steps fill 6.2 lists). Rays past the last
+# round take the per-ray kernel. Over the 63 surveyed frames that
+# overflowed a list of 64 steps a pixel, it took a median 1.24x the passes'
+# time a step: 0.88x at 1080p, where many rays fill the card, and 3.7x
+# (1.5-7.4x) at 480x272, where few rays fill under a wave.
+ROUNDS = 7
 
 
 class ReplayPlan(NamedTuple):
@@ -345,23 +355,40 @@ class ReplayPlan(NamedTuple):
 
     order: torch.Tensor    # int32 [L] flat pixels, the listed rays first
     offsets: torch.Tensor  # int64 [L] each ray's first entry in the step list
-    # int64 [4] on the device: m listed rays, m_c of them in the step list
-    # (a prefix), S steps of the listed rays, S_c of them in the step list
+    # int64 [4] on the device: m listed rays, m_r of them replayed by the
+    # rounds, S steps of the listed rays, S_r of them in the rounds
     counts: torch.Tensor
+    # int64 [R, 4] on the device, one row a round: its first listed ray, its
+    # rays, its base (the first ray's offset) and its steps
+    rounds: torch.Tensor
     capacity: int          # entries of the step list
 
 
 def step_capacity(pixels: int, max_steps: Optional[int] = None) -> int:
-    """Entries of the replay's step list for a frame of `pixels` rays:
-    STEPS_PER_PIXEL a pixel, at most `max_steps` a pixel (a ray replays at
-    most max_steps). Fixed on the host, so the list is allocated without a
-    host sync; the rays past it take the per-ray kernel."""
-    per_pixel = STEPS_PER_PIXEL if max_steps is None else min(STEPS_PER_PIXEL, max_steps)
-    return max(pixels * per_pixel, 1)
+    """Entries of the replay's step list for a frame of `pixels` rays: what
+    the frame can need (`max_steps` a pixel; None: the longest a record
+    holds), at most STEP_BUDGET. Fixed on the host, so the list is
+    allocated without a host sync."""
+    longest = _LEN_LIMIT if max_steps is None else max_steps
+    return max(min(pixels * longest, STEP_BUDGET), 1)
 
 
-def replay_plan(total: torch.Tensor, capacity: int,
-                order: Optional[torch.Tensor] = None) -> ReplayPlan:
+def replay_rounds(pixels: int, max_steps: Optional[int], capacity: int) -> int:
+    """Rounds a frame of `pixels` rays of at most `max_steps` steps (None:
+    unknown) can need over a list of `capacity` entries, at most ROUNDS.
+    A round that is not the last holds more than capacity - max_steps
+    steps (the next ray did not fit), so 1 + ceil((S - capacity) /
+    (capacity - max_steps + 1)) rounds hold S steps. On the host: a small
+    frame launches no round that must be empty."""
+    longest = _LEN_LIMIT if max_steps is None else max_steps
+    if capacity < longest:
+        return ROUNDS
+    rest = max(pixels * longest - capacity, 0)
+    return min(ROUNDS, 1 + -(-rest // (capacity - longest + 1)))
+
+
+def replay_plan(total: torch.Tensor, capacity: int, order: Optional[torch.Tensor] = None,
+                rounds: int = ROUNDS, lib=None) -> ReplayPlan:
     """The replay's list, on `total`'s device without a host sync.
 
     `order` None: every pixel, longest replay first, ties in pixel order —
@@ -369,8 +396,12 @@ def replay_plan(total: torch.Tensor, capacity: int,
     not depend on the sort being stable — and the rays with a replay
     (length > 0) are the m listed ones; the rest follow with length 0.
     Otherwise `order` (int32 flat pixels) is the list and every entry is
-    listed. Offsets are the exclusive prefix sums of the lengths along the
-    list; the rays whose steps end within `capacity` are a prefix of it."""
+    listed, the rays longer than `capacity` moved to its front. Offsets are
+    the exclusive prefix sums of the lengths along the list. The rays
+    longer than the list are a prefix of it (longest first); from there
+    `rounds` rounds each take the next rays whose steps fit `capacity`
+    (`_replay_rounds_plain`; on the card csrc/replay.cu's rounds kernel,
+    `lib` as in `media_replay`)."""
     flat = total.reshape(-1)
     lengths = flat.to(torch.int64)  # integers below 2^24: exact
     if order is None:
@@ -380,20 +411,51 @@ def replay_plan(total: torch.Tensor, capacity: int,
         listed = (lengths > 0).sum()
     else:
         order = order.long()
+        if capacity < _LEN_LIMIT:  # a ray may be longer than the list
+            order = order[torch.argsort((lengths[order] <= capacity).to(torch.int8), stable=True)]
         listed = torch.full((), order.numel(), dtype=torch.int64, device=flat.device)
     lengths = lengths[order]
-    offsets = step_offsets(lengths)
-    fits = offsets + lengths <= capacity
-    counts = torch.stack([listed, torch.minimum(listed, fits.sum()), lengths.sum(),
-                          torch.where(fits, lengths, 0).sum()])
-    return ReplayPlan(order.to(torch.int32), offsets, counts, capacity)
+    csum = torch.empty(lengths.numel() + 1, dtype=torch.int64, device=flat.device)
+    csum[:1].zero_()
+    torch.cumsum(lengths, 0, out=csum[1:])
+    if flat.device.type == "cuda":
+        table = torch.empty((rounds, 4), dtype=torch.int64, device=flat.device)
+        counts = torch.empty(4, dtype=torch.int64, device=flat.device)
+        cuda_lib.resolve(lib).replay_rounds(csum, listed, capacity, table, counts,
+                                            cuda_lib.current_stream(flat.device))
+    else:
+        table, counts = _replay_rounds_plain(csum, listed, capacity, rounds)
+    return ReplayPlan(order.to(torch.int32), csum[:-1], counts, table, capacity)
+
+
+def _replay_rounds_plain(csum: torch.Tensor, listed: torch.Tensor, capacity: int,
+                         rounds: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of csrc/replay.cu::replay_rounds_kernel: the round table
+    [rounds, 4] and the counts [4] (ReplayPlan), int64. `csum` [L + 1] is 0
+    and then the listed rays' step ends along the list; the first `listed`
+    rays are listed, those longer than `capacity` first. Round k starts at
+    the first ray that no earlier round took, its base that ray's offset,
+    and takes the rays whose steps end within base + capacity."""
+    m = int(listed)
+    ends = csum[1:m + 1]
+    j = int((ends - csum[:m] > capacity).sum())  # the rays longer than the list
+    table = []
+    for _ in range(rounds):
+        base = int(csum[j])
+        nxt = int(torch.searchsorted(ends, base + capacity, right=True))
+        table.append([j, nxt - j, base, int(csum[nxt]) - base])
+        j = nxt
+    table = torch.tensor(table, dtype=torch.int64, device=csum.device).reshape(rounds, 4)
+    counts = torch.stack([listed.to(torch.int64).reshape(()), table[:, 1].sum(), csum[m],
+                          table[:, 3].sum()])
+    return table, counts
 
 
 def replay_list(total: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """(order, n_steps) of `replay_plan`'s sorted list read on the host:
     the m listed rays (int32, longest first) and their steps. It waits for
     the device, so the frame path never calls it."""
-    plan = replay_plan(total, 1)
+    plan = replay_plan(total, 1, rounds=1)
     m, _, n_steps, _ = plan.counts.tolist()
     return plan.order[:m], n_steps
 
@@ -418,8 +480,10 @@ def step_offsets(lengths: torch.Tensor) -> torch.Tensor:
 
 def _replay_cuda(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan, lib):
     """csrc/replay.cu: the three passes (four launches) over a step list of
-    `plan.capacity` entries, then the per-ray kernel for the rays past it.
-    Returns (I [3, H, W], T [H, W]); nothing waits for the device."""
+    `plan.capacity` entries, once a round of `plan.rounds` (a round with no
+    rays reads its row and exits), then the per-ray kernel for the rays
+    longer than the list or past the last round. Returns (I [3, H, W],
+    T [H, W]); nothing waits for the device."""
     lib = cuda_lib.resolve(lib)
     _, _, h, w = rec.shape
     device = rec.device
@@ -427,13 +491,21 @@ def _replay_cuda(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan, 
     trans = torch.ones((h, w), dtype=torch.float32, device=device)
     consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(device)
     pos, vel, emit = step_list(plan.capacity, device)
-    lib.replay_march(consts, rec, plan, pos, vel, stream)
-    lib.replay_shade(consts, float(time), "disk", plan, pos, vel, emit, stream)  # every step
-    if scene.enable_clouds:
-        lib.replay_shade(consts, float(time), "cloud", plan, pos, vel, emit, stream)
-    lib.replay_composite(plan, emit, inten, trans, stream)
+    for r in range(plan.rounds.shape[0]):
+        replay_round(lib, consts, scene, time, rec, plan, r, pos, vel, emit, inten, trans, stream)
     lib.replay_overflow(consts, float(time), rec, plan, inten, trans, stream)
     return inten, trans
+
+
+def replay_round(lib, consts, scene: SceneConfig, time, rec: torch.Tensor, plan: ReplayPlan,
+                 r: int, pos, vel, emit, inten, trans, stream) -> None:
+    """Round `r` of the replay's passes on the card: march, shade disk (every
+    step), shade cloud, composite over the step list (pos, vel, emit)."""
+    lib.replay_march(consts, rec, plan, r, pos, vel, stream)
+    lib.replay_shade(consts, float(time), "disk", plan, r, pos, vel, emit, stream)
+    if scene.enable_clouds:
+        lib.replay_shade(consts, float(time), "cloud", plan, r, pos, vel, emit, stream)
+    lib.replay_composite(plan, r, emit, inten, trans, stream)
 
 
 def step_list(n_steps: int, device):
@@ -532,6 +604,7 @@ def media_replay(
     order: Optional[torch.Tensor] = None,
     lib=None,
     capacity: Optional[int] = None,
+    max_steps: Optional[int] = None,
 ) -> Tuple[Vec3, torch.Tensor]:
     """The B pass: replay recorded media segments. `rec` is the record
     pass's [slots, 7, H, W] planes; `order` the int32 flat pixel indices
@@ -539,8 +612,10 @@ def media_replay(
     transmittance), [H, W]; pixels not replayed get I = 0, T = 1 — what
     replaying their empty records gives. csrc/replay.cu for CUDA tensors,
     the plain version for CPU tensors. `capacity`: the step list's entries
-    (None: `step_capacity` of the frame); rays past it are replayed one
-    thread a ray, with the same (I, T)."""
+    (None: `step_capacity` of the frame); the passes run in rounds over it,
+    and the rays longer than it or past the last round are replayed one
+    thread a ray, with the same (I, T). `max_steps`: the record's step cap
+    (None: unknown), which bounds the list and its rounds (`replay_rounds`)."""
     if rec.dim() != 4 or rec.shape[1] != 7:
         raise ValueError(f"records must be [slots, 7, H, W], got {tuple(rec.shape)}")
     n = rec.shape[2] * rec.shape[3]
@@ -549,7 +624,8 @@ def media_replay(
     if order.dtype != torch.int32 or order.dim() != 1 or order.device != rec.device:
         raise ValueError("order must be a 1-D int32 tensor on the records' device")
     total = rec[:, 6].sum(0)  # integers below 2^24: exact in any order
-    plan = replay_plan(total, step_capacity(n) if capacity is None else capacity, order)
+    cap = step_capacity(n, max_steps) if capacity is None else capacity
+    plan = replay_plan(total, cap, order, replay_rounds(n, max_steps, cap), lib)
     return _replay(scene, rec, time, plan, lib)
 
 
@@ -557,7 +633,7 @@ def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
             lib) -> Tuple[Vec3, torch.Tensor]:
     """(I, T) [H, W] of `plan`'s listed rays: the kernels for CUDA tensors;
     on the CPU the same split with the plain versions: the passes' twins
-    over the step list of the rays that fit, `_replay_plain` (the per-ray
+    over the step list, round by round, `_replay_plain` (the per-ray
     kernel's twin) for the rest."""
     _, _, h, w = rec.shape
     device = rec.device
@@ -572,49 +648,54 @@ def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
 
 
 def _replay_split_plain(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan):
-    """The kernels' split on CPU tensors: (I [3, N], T [N]). The first m_c
-    listed rays go through the three passes' twins over a step list of S_c
-    entries at the plan's offsets (S_c must fit the capacity), the rays
-    m_c..m through `_replay_plain`.
+    """The kernels' split on CPU tensors: (I [3, N], T [N]). Each round of
+    `plan.rounds` runs its rays through the three passes' twins over a step
+    list of its steps (at most the capacity), each ray at its offset less
+    the round's base; the rays before round 0 (longer than the list) and
+    past the last round run through `_replay_plain`.
 
     The shade twin takes the list's steps in pixel order, each ray's steps
     in turn: torch's CPU transcendentals round an element by its place in
     the batch, and this keeps a ray's bits independent of the list order
     (the kernels' threads do not share)."""
-    m, m_c, _, s_c = plan.counts.tolist()
-    if s_c > plan.capacity:
-        raise AssertionError(f"{s_c} steps in a step list of {plan.capacity}")
     n = rec.shape[2] * rec.shape[3]
     order = plan.order.long()
     inten = torch.zeros((3, n), dtype=torch.float32)
     trans = torch.ones(n, dtype=torch.float32)
-    if m_c:
-        fit, offsets = order[:m_c], plan.offsets[:m_c]
-        pos, vel = _replay_march_plain(scene, rec, fit, offsets, s_c)
+    table = plan.rounds.tolist()
+    for first, rays, base, steps in table:
+        if not rays:
+            continue
+        if steps > plan.capacity:
+            raise AssertionError(f"{steps} steps in a step list of {plan.capacity}")
+        fit, offsets = order[first:first + rays], plan.offsets[first:first + rays] - base
+        pos, vel = _replay_march_plain(scene, rec, fit, offsets, steps)
         if bool(pos.isnan().any()):
             raise AssertionError("the replay's offsets left step-list entries unwritten")
-        lengths = torch.diff(offsets, append=offsets.new_tensor([s_c]))
-        ray = torch.repeat_interleave(torch.arange(m_c), lengths)
-        key = fit[ray] * (int(lengths.max()) + 1) + torch.arange(s_c) - offsets[ray]
+        lengths = torch.diff(offsets, append=offsets.new_tensor([steps]))
+        ray = torch.repeat_interleave(torch.arange(rays), lengths)
+        key = fit[ray] * (int(lengths.max()) + 1) + torch.arange(steps) - offsets[ray]
         perm = torch.argsort(key)
-        emit = torch.empty((s_c, 4), dtype=torch.float32)
+        emit = torch.empty((steps, 4), dtype=torch.float32)
         emit[perm] = _replay_shade_plain(scene, pos[perm], vel[perm], time)
         inten[:, fit], trans[fit] = _replay_composite_plain(emit, offsets)
-    if m > m_c:
-        past = order[m_c:m]
+    past = torch.cat([order[:table[0][0]], order[table[-1][0] + table[-1][1]:int(plan.counts[0])]])
+    if past.numel():
         inten[:, past], trans[past] = _replay_plain(scene, rec, time, past)
     return inten, trans
 
 
 def media_replay_sorted(scene: SceneConfig, record: Record, time, lib=None,
-                        capacity: Optional[int] = None) -> Tuple[Vec3, torch.Tensor]:
+                        capacity: Optional[int] = None,
+                        max_steps: Optional[int] = None) -> Tuple[Vec3, torch.Tensor]:
     """The B pass over the rays that recorded media only, longest first,
     so each warp holds rays of similar replay length. A ray's replay
     depends only on its own records, so this is bitwise the image-layout
     replay. The list is built on the device (`replay_plan`): nothing waits
-    for it. `capacity` as in `media_replay`."""
+    for it. `capacity` and `max_steps` as in `media_replay`."""
     n = record.total.numel()
-    plan = replay_plan(record.total, step_capacity(n) if capacity is None else capacity)
+    cap = step_capacity(n, max_steps) if capacity is None else capacity
+    plan = replay_plan(record.total, cap, rounds=replay_rounds(n, max_steps, cap), lib=lib)
     return _replay(scene, record.rec, time, plan, lib)
 
 
@@ -651,15 +732,15 @@ def _compact_tile_rgba(
     of the single-device frame, rows and columns in local order."""
     ss = settings.supersample
     place = dict(origin=origin, img_w=img_w, img_h=img_h, strips=strips, cstrips=cstrips)
+    max_steps = settings.resolved_max_steps(scene)
     record = march_pallas_camera_sky_record(
-        scene, camera, effects, time, w, h, settings.resolved_max_steps(scene),
+        scene, camera, effects, time, w, h, max_steps,
         *sky.shape, slots=settings.media_slots, device=device, lib=lib, **place,
     )
-    capacity = step_capacity(w * h, settings.resolved_max_steps(scene))
     if settings.media_sort:
-        intensity, trans = media_replay_sorted(scene, record, time, lib=lib, capacity=capacity)
+        intensity, trans = media_replay_sorted(scene, record, time, lib=lib, max_steps=max_steps)
     else:
-        intensity, trans = media_replay(scene, record.rec, time, lib=lib, capacity=capacity)
+        intensity, trans = media_replay(scene, record.rec, time, lib=lib, max_steps=max_steps)
 
     # Captured rays: transmittance 0 (raymarcher.cu:49) — the replay
     # cannot know about captures, so the mask applies here.

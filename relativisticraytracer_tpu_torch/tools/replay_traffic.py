@@ -1,5 +1,6 @@
 """The replay's traffic along the default camera paths: how many steps the
-compact frame's replay needs, and how much of it goes past the step list.
+compact frame's replay needs, in how many rounds of the step list, and how
+much of it goes past them.
 
     python -m relativisticraytracer_tpu_torch.tools.replay_traffic [--every SECONDS]
 
@@ -9,11 +10,12 @@ CLI's cinema, native and realtime presets), the record pass at the default
 scene, settings and effects, then the replay plan built on the device
 (ops/pallas_compact.replay_plan) read on the host: m rays with a replay, S
 steps, the step density S / pixels, and at the step list's capacity
-(pallas_compact.step_capacity) the rays and steps past it, which the
-per-ray kernel replays. On a CUDA device it also times the replay's kernels
-(CUDA events, on a plan built beforehand) at that capacity and at one that
-holds every step, so the cost of the rays past the list shows per frame,
-and holds the two replays' (I, T) bitwise equal.
+(pallas_compact.step_capacity) the rounds the frame launches and uses and
+the rays and steps the rounds leave to the per-ray kernel. On a CUDA device
+it also times the replay's kernels (CUDA events, on a plan built
+beforehand) at that capacity and at one that holds every step in one round
+(`replay_fit_ms`, the reference), so the cost of the rounds and of the rays
+past them shows per frame, and holds the two replays' (I, T) bitwise equal.
 The report goes to chiprun_out/replay_traffic.json; `summary` condenses it
 to one line per path and size.
 """
@@ -45,22 +47,26 @@ OUT = pathlib.Path(__file__).resolve().parents[2] / "chiprun_out"
 def frame_traffic(scene: SceneConfig, settings: RenderSettings, time: float, pose,
                   device="cuda", lib=None, timed: bool = False) -> Dict:
     """One frame's replay traffic at `pose` = (pos, yaw, pitch) and `time`:
-    pixels, m, S, the density, the capacity, the rays and steps past it,
+    pixels, m, S, the density, the capacity, the rounds launched and those
+    with rays, the rays and steps the rounds leave to the per-ray kernel,
     and with `timed` (CUDA only) the replay's kernel ms at the capacity
-    (`replay_ms`) and at a capacity of S (`replay_fit_ms`), and whether the
-    two replays agree bitwise (`bitwise`)."""
+    (`replay_ms`) and at a capacity of S in one round (`replay_fit_ms`),
+    and whether the two replays agree bitwise (`bitwise`)."""
     w, h = settings.width * settings.supersample, settings.height * settings.supersample
     max_steps = settings.resolved_max_steps(scene)
     record = pc.march_pallas_camera_sky_record(
         scene, camera_state_from_pose(*pose), CameraEffects(), time, w, h, max_steps,
         *SKY_SHAPE, slots=settings.media_slots, device=device, lib=lib)
     cap = pc.step_capacity(w * h, max_steps)
-    plan = pc.replay_plan(record.total, cap)
-    m, m_c, s, s_c = plan.counts.tolist()
+    rounds = pc.replay_rounds(w * h, max_steps, cap)
+    plan = pc.replay_plan(record.total, cap, rounds=rounds, lib=lib)
+    m, m_r, s, s_r = plan.counts.tolist()
     row = dict(width=w, height=h, max_steps=max_steps, pixels=w * h, rays=m, steps=s,
-               density=s / (w * h), capacity=cap, rays_past=m - m_c, steps_past=s - s_c)
+               density=s / (w * h), capacity=cap, rounds=rounds,
+               rounds_used=int((plan.rounds[:, 1] > 0).sum()), rays_past=m - m_r,
+               steps_past=s - s_r)
     if timed:
-        fit = pc.replay_plan(record.total, max(s, 1))
+        fit = pc.replay_plan(record.total, max(s, 1), rounds=1, lib=lib)
         got, row["replay_ms"] = _replay_ms(scene, record, time, plan, lib)
         want, row["replay_fit_ms"] = _replay_ms(scene, record, time, fit, lib)
         # the rays past the list replay to the same bits as in the list
@@ -111,31 +117,58 @@ def survey(sizes: Sequence[Tuple[str, int, int]] = SIZES, every: float = 1.0,
     return rows
 
 
+# The step list's earlier size, 64 entries a pixel: the frames denser than
+# it are those whose tail a list of that size sent to the per-ray kernel.
+DENSE = 64
+
+
 def summary(rows: Sequence[Dict]) -> List[str]:
     """One line per (path, size): frames, the step density (median, max),
-    the frames with rays past the step list, and what they cost."""
+    the frames in more than one round and those with rays left to the
+    per-ray kernel, and what the frames denser than DENSE steps a pixel
+    cost against one list that holds every step."""
     lines = []
     for key in dict.fromkeys((r["path"], r["size"]) for r in rows):
         sel = [r for r in rows if (r["path"], r["size"]) == key]
         dens = np.array([r["density"] for r in sel])
+        multi = [r for r in sel if r["rounds_used"] > 1]
         past = [r for r in sel if r["rays_past"]]
         worst = max(sel, key=lambda r: r["steps"])
         line = (f"{key[0]} at {key[1]} {sel[0]['width']}x{sel[0]['height']}: {len(sel)} frames, "
                 f"steps a pixel median {np.median(dens):.2f} max {dens.max():.2f} "
                 f"(S max {worst['steps']} at t {worst['time']:g}, capacity "
-                f"{sel[0]['capacity']}); frames past the step list {len(past)}")
+                f"{sel[0]['capacity']}, {sel[0]['rounds']} rounds); frames in more than one "
+                f"round {len(multi)} (rounds used up to {max(r['rounds_used'] for r in sel)}); "
+                f"frames with rays left to the per-ray kernel {len(past)}")
         if past:
-            line += (f" (rays past up to {max(r['rays_past'] for r in past)}, steps past up to "
-                     f"{max(r['steps_past'] for r in past)}")
-            if "replay_ms" in past[0]:
-                extra = [r["replay_ms"] - r["replay_fit_ms"] for r in past]
-                line += f", replay ms over the fitting list's up to {max(extra):.3f}"
-            line += ")"
+            line += (f" (rays up to {max(r['rays_past'] for r in past)}, steps up to "
+                     f"{max(r['steps_past'] for r in past)})")
         if "replay_ms" in sel[0]:
-            line += (f"; replay ms max {max(r['replay_ms'] for r in sel):.3f}; bitwise the "
-                     f"fitting list's {all(r['bitwise'] for r in sel)}")
+            dense = [r for r in sel if r["density"] > DENSE]
+            line += (f"; frames denser than {DENSE} steps a pixel {len(dense)}, replay ms summed "
+                     f"{sum(r['replay_ms'] for r in dense):.3f} against one list's "
+                     f"{sum(r['replay_fit_ms'] for r in dense):.3f}; replay ms max "
+                     f"{max(r['replay_ms'] for r in sel):.3f}; bitwise the one list's "
+                     f"{all(r['bitwise'] for r in sel)}")
         lines.append(line)
     return lines
+
+
+def totals(rows: Sequence[Dict]) -> Dict[str, Dict]:
+    """Per size: frames, those denser than DENSE steps a pixel, the rounds
+    used at most, the frames with rays left to the per-ray kernel, and for
+    the dense frames the replay ms summed against one list's."""
+    out = {}
+    for size in dict.fromkeys(r["size"] for r in rows):
+        sel = [r for r in rows if r["size"] == size]
+        dense = [r for r in sel if r["density"] > DENSE]
+        out[size] = dict(frames=len(sel), dense=len(dense),
+                         rounds_used=max(r["rounds_used"] for r in sel),
+                         frames_past=sum(1 for r in sel if r["rays_past"]))
+        if "replay_ms" in sel[0]:
+            out[size].update(replay_ms=sum(r["replay_ms"] for r in dense),
+                             replay_fit_ms=sum(r["replay_fit_ms"] for r in dense))
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -148,10 +181,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     lib = cuda_lib.kernels()
     rows = survey(every=args.every, lib=lib)
     OUT.mkdir(exist_ok=True)
-    report = dict(device=torch.cuda.get_device_name(0), every=args.every, rows=rows)
+    report = dict(device=torch.cuda.get_device_name(0), every=args.every, rows=rows,
+                  totals=totals(rows))
     (OUT / "replay_traffic.json").write_text(json.dumps(report, indent=1))
     for line in summary(rows):
         print(line, flush=True)
+    print(json.dumps(report["totals"]), flush=True)
     if not all(r["bitwise"] for r in rows):
         raise SystemExit("replay_traffic: a replay past the step list differs")
 

@@ -85,18 +85,20 @@ def test_record_kernel_matches_plain(cuda):
 def test_replay_kernel_matches_plain(cuda, sorted_order):
     """The replay's march, shade and composite kernels give each ray the
     plain replay's (I, T) bitwise, for the longest-first list built on the
-    device and for image order; every ray fits the step list, so the
-    per-ray kernel launches and does nothing."""
+    device and for image order; the record's step cap bounds the list to
+    what the frame can need, so one round takes every ray and the per-ray
+    kernel launches and does nothing."""
     k, _ = _record_both(cuda)
     scene = SceneConfig()
     lib = cuda_lib.kernels()
     lib.reset_launches()
     if sorted_order:
         order = pc.replay_order(k.total)
-        ik, tk = pc.media_replay_sorted(scene, k, 10.0)
+        lib.reset_launches()
+        ik, tk = pc.media_replay_sorted(scene, k, 10.0, max_steps=2000)
     else:
         order = torch.arange(k.hit.numel(), device=cuda, dtype=torch.int32)
-        ik, tk = pc.media_replay(scene, k.rec, 10.0)
+        ik, tk = pc.media_replay(scene, k.rec, 10.0, max_steps=2000)
     assert all(lib.launches[name] == 1 for name in cuda_lib.REPLAY_PASSES)
     sel = order.long()
     ip, tp = pc._replay_plain(scene, k.rec, 10.0, sel)
@@ -108,13 +110,17 @@ def test_replay_kernel_matches_plain(cuda, sorted_order):
 @pytest.mark.parametrize("capacity", ["one step", "half"])
 @pytest.mark.parametrize("sorted_order", [True, False])
 def test_replay_overflow_kernel_bitwise(cuda, capacity, sorted_order):
-    """A step list too small for the frame: the rays past it go to the
-    per-ray kernel, and every ray's (I, T) is bitwise the unforced replay's
-    and the plain replay's (capacity 1 sends every ray there)."""
+    """A step list too small for the frame: the passes run in rounds, the
+    rays longer than the list or past the last round go to the per-ray
+    kernel, and every ray's (I, T) is bitwise the unforced replay's and the
+    plain replay's (capacity 1 sends every ray longer than one step to the
+    per-ray kernel; half the steps runs the rounds alone)."""
     k, _ = _record_both(cuda)
     scene = SceneConfig()
     n_steps = pc.replay_list(k.total)[1]
     cap = 1 if capacity == "one step" else n_steps // 2
+    m, m_r = pc.replay_plan(k.total, cap).counts[:2].tolist()
+    assert (m_r < m) if capacity == "one step" else (m_r == m)
 
     def run(c):
         if sorted_order:
@@ -123,6 +129,56 @@ def test_replay_overflow_kernel_bitwise(cuda, capacity, sorted_order):
 
     want_i, want_t = run(None)
     got_i, got_t = run(cap)
+    assert torch.equal(torch.stack(list(got_i)), torch.stack(list(want_i)))
+    assert torch.equal(got_t, want_t)
+    sel = pc.replay_order(k.total).long()
+    ip, tp = pc._replay_plain(scene, k.rec, 10.0, sel)
+    assert torch.equal(torch.stack(list(got_i)).reshape(3, -1)[:, sel], ip)
+    assert torch.equal(got_t.reshape(-1)[sel], tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_order", [True, False])
+def test_replay_rounds_kernel_matches_its_twin(cuda, sorted_order):
+    """The round table and counts the rounds kernel builds on the card are
+    its plain twin's on the CPU, with the same order and offsets, at
+    capacities of one step, a few, the longest ray, a third of the steps,
+    the steps and more."""
+    k, _ = _record_both(cuda)
+    order = None if sorted_order else torch.arange(k.hit.numel(), dtype=torch.int32)
+    full = pc.replay_plan(k.total.cpu(), 1 << 30, order)
+    m, _, n_steps, _ = full.counts.tolist()
+    longest = int(pc.step_lengths(k.rec.cpu(), full.order[:m]).max())
+    for cap in (1, 5, longest, n_steps // 3, n_steps, 10 * n_steps):
+        want = pc.replay_plan(k.total.cpu(), cap, order)
+        got = pc.replay_plan(k.total, cap, None if order is None else order.to(cuda))
+        for a, b in zip(got[:4], want[:4]):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_order", [True, False])
+def test_multi_round_replay_bitwise(cuda, sorted_order):
+    """A third of the steps: the passes run in at least three rounds over
+    one list, launched once a round, and every ray's (I, T) is bitwise the
+    one-list replay's and the plain replay's."""
+    k, _ = _record_both(cuda)
+    scene = SceneConfig()
+    n_steps = pc.replay_list(k.total)[1]
+    cap = n_steps // 3
+    plan = pc.replay_plan(k.total, cap)
+    assert int((plan.rounds[:, 1] > 0).sum()) >= 3 and plan.counts[1] == plan.counts[0]
+    lib = cuda_lib.kernels()
+
+    def run(c):
+        lib.reset_launches()
+        if sorted_order:
+            return pc.media_replay_sorted(scene, k, 10.0, capacity=c)
+        return pc.media_replay(scene, k.rec, 10.0, capacity=c)
+
+    got_i, got_t = run(cap)
+    assert lib.launches["replay_march"] == pc.ROUNDS and lib.launches["replay_rounds"] == 1
+    want_i, want_t = run(None)
     assert torch.equal(torch.stack(list(got_i)), torch.stack(list(want_i)))
     assert torch.equal(got_t, want_t)
     sel = pc.replay_order(k.total).long()
