@@ -124,7 +124,17 @@ script exits non-zero without the final result line:
      subprocesses with RRT_DEVICE=cuda: render_still, custom_scene and
      multi_chip at full size, render_animation 0.5 (12 frames at 720p),
      frame_parallel_animation and live_preview in smoke mode (wall time and
-     exit code each; any non-zero exit fails).
+     exit code each; any non-zero exit fails);
+ 13. the `loop` choice: the fuzz tool (tools/fuzz_parity.py) at its
+     defaults — 24 random poses x times x spins (0 and 0.9) at 96x64 and
+     400 steps — for the compact program (record, replay, sky) and the
+     inline program (march_sky, sky) against loop="while" (the plain
+     march) on the card, each case at RMSE < 1e-3 with fewer than 1e-3 of
+     its pixels off by more than 1 LSB, each program's kernels launched in
+     its run; one loop="while" headline frame (1920x1080, 2000 steps, no
+     kernel launched) against the compact kernel frame, RMSE < 1e-3, with
+     both synchronized times; the CLI's still --loop while and --loop
+     pallas (96x64, 64 steps) as subprocesses, within the same gate.
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
@@ -1113,6 +1123,98 @@ def phase12_entry_points(lib, dev, tmp):
         raise AssertionError(f"examples built the kernels again: {built}")
 
 
+# the kernels each kernel program launches on the fuzz's scenes (both media on)
+FUZZ_KERNELS = {"compact": ("record", "replay_rounds", "replay_march", "replay_shade_disk",
+                            "replay_shade_cloud", "replay_composite", "sky"),
+                "inline": ("march_sky", "sky")}
+
+
+def phase13_loop(lib, dev, head_sky, smi, tmp):
+    """Phase 13: the `loop` choice on the card — the fuzz tool
+    (tools/fuzz_parity, its defaults: 24 cases, 96x64, 400 steps, both
+    spins) for the compact and the inline program against the plain march,
+    the launches of each program's kernels in its run; one full-size
+    loop="while" frame (the headline) against the compact kernel frame;
+    the CLI's still with --loop while and --loop pallas as subprocesses."""
+    import os
+    import sys
+
+    from relativisticraytracer_tpu_torch.config import CameraEffects, RenderSettings, SceneConfig
+    from relativisticraytracer_tpu_torch.io.image import decode_png
+    from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
+    from relativisticraytracer_tpu_torch.render.pipeline import Renderer
+    from relativisticraytracer_tpu_torch.tools import fuzz_parity
+
+    plain_frames = {}
+    reports = {}
+    for program in ("compact", "inline"):
+        lib.reset_launches()
+        t0 = time.perf_counter()
+        rep = fuzz_parity.run(media_pass=program, device=dev, plain_frames=plain_frames,
+                              log=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {k: v for k, v in lib.launches.items() if v}
+        spins = sorted({c["spin"] for c in rep["cases"]})
+        reports[program] = dict(rep, launches=ran, wall_s=wall)
+        print(f"phase 13 fuzz ({program} kernels vs loop=\"while\", {len(rep['cases'])} cases "
+              f"96x64 400 steps, spins {spins}; {smi}): worst RMSE {rep['worst_rmse']:.3g}, "
+              f"worst LSB {rep['worst_lsb']}, worst mismatch_frac "
+              f"{rep['worst_mismatch_frac']:.5f}, worst share of pixels over 1 LSB "
+              f"{rep['worst_over_lsb_frac']:.5f}, cases within 1 LSB "
+              f"{sum(c['max_lsb'] <= 1 for c in rep['cases'])}/{len(rep['cases'])}, pass "
+              f"{rep['pass']}; {wall:.1f} s (the plain frames rendered in the first run); "
+              f"launches {ran}", flush=True)
+        missing = [k for k in FUZZ_KERNELS[program] if not ran.get(k)]
+        if not rep["pass"] or missing or spins != [0.0, 0.9]:
+            bad = [(k, c) for k, c in enumerate(rep["cases"]) if not c["ok"]]
+            raise AssertionError(f"fuzz {program}: failed cases {bad}, kernels not launched "
+                                 f"{missing}, spins {spins}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "fuzz_parity_programs.json").write_text(
+        json.dumps(dict(device=torch.cuda.get_device_name(dev), power=smi, **reports), indent=1))
+
+    # one full-size loop="while" frame: the headline against the compact kernel frame
+    scene = SceneConfig()
+    cam = camera_state_from_pose(*HEADLINE["pose"])
+    eff = CameraEffects()
+    wh = dict(width=HEADLINE["width"], height=HEADLINE["height"])
+    kern = Renderer(scene, RenderSettings(**wh), skybox=head_sky, device=dev)
+    plain = Renderer(scene, RenderSettings(loop="while", **wh), skybox=head_sky, device=dev)
+    kern.render(cam, eff, 1.0)
+    k_frame, k_ms = sync_ms(lambda: kern.render(cam, eff, 1.0), reps=3)
+    lib.reset_launches()
+    w_frame, w_ms = sync_ms(lambda: plain.render(cam, eff, 1.0))
+    w_launches = {k: v for k, v in lib.launches.items() if v}
+    c = fuzz_parity.compare(k_frame.cpu().numpy(), w_frame.cpu().numpy(), 1)
+    print(f"phase 13 loop=\"while\" {wh['width']}x{wh['height']} {scene.max_steps} steps "
+          f"(headline pose, 2048x4096 starfield; {smi}): {w_ms:.1f} ms synchronized against the "
+          f"compact kernel frame's {k_ms:.3f} ms (mean of 3); RMSE {c['rmse']:.3g}, max LSB "
+          f"{c['max_lsb']}, share of pixels over 1 LSB {c['over_lsb_frac']:.5f}; kernel launches "
+          f"in the while frame {w_launches or 'none'}", flush=True)
+    if not c["rmse"] < 1e-3 or w_launches:
+        raise AssertionError(f"while frame: RMSE {c['rmse']}, launches {w_launches}")
+
+    # the CLI's --loop as subprocesses (the library is already built)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    frames, walls = {}, []
+    for loop in ("while", "pallas"):
+        out = tmp / f"loop_{loop}.png"
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "relativisticraytracer_tpu_torch", "still",
+                        "--loop", loop, "--width", "96", "--height", "64", "--max-steps", "64",
+                        "--out", str(out)],
+                       check=True, capture_output=True, text=True, timeout=600, cwd=tmp, env=env)
+        walls.append(f"--loop {loop} {time.perf_counter() - t0:.1f} s")
+        frames[loop] = decode_png(out)
+    c = fuzz_parity.compare(frames["pallas"], frames["while"], 1)
+    print(f"phase 13 CLI still 96x64 64 steps (subprocesses): {', '.join(walls)}; frames "
+          f"{frames['while'].shape} and {frames['pallas'].shape}, RMSE {c['rmse']:.3g}, max LSB "
+          f"{c['max_lsb']}, share of pixels over 1 LSB {c['over_lsb_frac']:.5f}", flush=True)
+    if not c["ok"] or frames["while"].shape != (64, 96, 4):
+        raise AssertionError(f"CLI --loop frames: {c}, shape {frames['while'].shape}")
+
+
 def main() -> None:
     t_main = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2008,6 +2110,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase12_entry_points(lib, dev, pathlib.Path(tmp))
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 13: the loop choice (kernel programs vs the plain march)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase13_loop(lib, dev, head_sky, smi, pathlib.Path(tmp))
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     rows = {name: dict(launches=launches[name], max_abs_err=errs[name], ms=ms[name],
                        plain_ms=plain_ms[name], bound_ms=bounds[name][0],

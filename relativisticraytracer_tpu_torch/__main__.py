@@ -8,7 +8,8 @@ analog of the reference's run.bat + main()).
 
 Every command renders on a CUDA card (`--device cuda`, the default;
 the kernels are built at first use) unless `--device cpu` asks for the
-plain PyTorch versions.
+plain PyTorch versions. `--loop while` or `--loop scan` renders with the
+plain march instead of the kernel programs, on either device.
 """
 
 from __future__ import annotations
@@ -85,6 +86,9 @@ def _add_render_args(p):
                         "parity budget — see PERF.md precision trades)")
     p.add_argument("--skybox", type=str, default=None,
                    help="equirect image path (procedural starfield if omitted)")
+    p.add_argument("--loop", default=None, choices=["while", "scan", "pallas"],
+                   help="march strategy (default: the kernel programs; while "
+                        "and scan run the plain march)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda: the CUDA "
                         "kernels; cpu runs their plain PyTorch versions)")
@@ -107,7 +111,8 @@ def _build_renderer(args):
         noise_octave_cap=args.octave_cap,
     )
     settings = RenderSettings(
-        width=args.width, height=args.height, max_steps=args.max_steps
+        width=args.width, height=args.height, max_steps=args.max_steps,
+        loop=args.loop or "auto",
     )
     return Renderer(scene, settings,
                     skybox_rgba=load_skybox(args.skybox, device=args.device),

@@ -11,8 +11,9 @@ them in float32.
 
 `RenderSettings` keeps every field of the JAX settings and the same
 validation errors. The port has no `resolved_loop()` that probes the
-machine: the renderer's explicit `device` decides the path (`cuda` launches
-the hand-written kernels, `cpu` runs their plain PyTorch versions).
+machine: `loop` picks the frame program (`kernel_loop`), and the renderer's
+explicit `device` decides how the kernel programs run (`cuda` launches the
+hand-written kernels, `cpu` runs their plain PyTorch versions).
 """
 
 from __future__ import annotations
@@ -176,22 +177,32 @@ def effects_off() -> CameraEffects:
 class RenderSettings:
     """Static, shape-affecting render quality knobs.
 
-    Field for field the JAX package's settings. In the port `loop`,
-    `chunk`, `media_capacity` and `sky_gather` are accepted and validated
-    but select nothing: the renderer's device picks kernels or plain
-    versions, the replay's step list is sized by the frame, at most a fixed
-    budget (ops/pallas_compact.step_capacity; the replay runs in rounds over
-    it, rays past them are replayed per ray, with the same result), and the
-    sky is a direct per-pixel gather.
-    `media_pass` picks the frame program: "compact" (record + replay) or
-    "inline" (the fused march)."""
+    Field for field the JAX package's settings. `loop` picks the frame
+    program, as in the JAX package (`kernel_loop`):
+      * "auto" (default) and "pallas": the kernel programs, which
+        `media_pass` picks: "compact" (record + replay) or "inline" (the
+        fused march). On a CUDA device they launch the hand-written
+        kernels, on the CPU their plain PyTorch versions;
+      * "while": the plain march (render/march.py) on any device, dropping
+        finished rays every `chunk` steps and stopping once none is left;
+      * "scan": the same march with a fixed trip count of the step cap
+        over every ray (no working-set drop, no early exit); bitwise the
+        "while" frame;
+      * anything else: ValueError("unknown loop strategy ...") when a
+        renderer is built.
+    `media_pass`, `media_slots` and `media_sort` act on the kernel
+    programs only. `media_capacity` and `sky_gather` are accepted and
+    validated but select nothing: the replay's step list is sized by the
+    frame, at most a fixed budget (ops/pallas_compact.step_capacity; the
+    replay runs in rounds over it, rays past them are replayed per ray,
+    with the same result), and the sky is a direct per-pixel gather."""
 
     width: int = WINDOW_WIDTH
     height: int = WINDOW_HEIGHT
     # Step-cap override. None (default) = use the scene's max_steps.
     max_steps: Optional[int] = None
     loop: str = "auto"
-    chunk: int = 64
+    chunk: int = 64                # steps between working-set drops, loop="while"
     # Supersampling AA factor: rays on an (s*H, s*W) grid, box-filtered
     # after tone mapping. 1 = reference behavior.
     supersample: int = 1
@@ -224,3 +235,14 @@ class RenderSettings:
     def resolved_max_steps(self, scene: SceneConfig) -> int:
         """The march step cap: this override if set, else the scene's."""
         return self.max_steps if self.max_steps is not None else scene.max_steps
+
+
+def kernel_loop(settings: RenderSettings) -> bool:
+    """True where `settings.loop` picks the kernel programs, False where it
+    picks the plain march (JAX: render/pipeline._compiled_render,
+    render/march.march); raises the JAX package's error for any other."""
+    if settings.loop in ("auto", "pallas"):
+        return True
+    if settings.loop in ("while", "scan"):
+        return False
+    raise ValueError(f"unknown loop strategy {settings.loop!r}")

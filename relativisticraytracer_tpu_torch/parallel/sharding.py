@@ -11,14 +11,16 @@ its shards then run one after another, which is how one card runs an
 
 Two branches, as in the JAX package:
 
-  * compact (`media_pass="compact"`, a sky and a medium): each shard runs
-    the single-device record/replay/sky program on its rectangle, with its
-    global pixel origin and, when interleaved, strip maps in the record
-    kernel's ray generation (ops/pallas_compact._compact_tile_rgba);
+  * compact (the kernel loop, `media_pass="compact"`, a sky and a
+    medium): each shard runs the single-device record/replay/sky program
+    on its rectangle, with its global pixel origin and, when interleaved,
+    strip maps in the record kernel's ray generation
+    (ops/pallas_compact._compact_tile_rgba);
   * otherwise: the full frame's rays are generated once, and each shard
-    marches its slice of them with the fused plane march
-    (ops/pallas_march.march_pallas), then samples the sky and runs the
-    epilogue on its tile.
+    marches its slice of them, with the fused plane march
+    (ops/pallas_march.march_pallas) on the kernel loop or with the plain
+    march (render/march.render_hdr) for `loop` "while" or "scan", then
+    samples the sky and runs the epilogue on its tile.
 
 Either way a shard's tile is bitwise the matching crop of the
 single-device frame. With strip interleaving the returned frame is in
@@ -35,12 +37,19 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from relativisticraytracer_tpu_torch.config import CameraEffects, RenderSettings, SceneConfig
+from relativisticraytracer_tpu_torch.config import (
+    CameraEffects,
+    RenderSettings,
+    SceneConfig,
+    kernel_loop,
+)
 from relativisticraytracer_tpu_torch.core.vecmath import Vec3, normalize
 from relativisticraytracer_tpu_torch.ops.pallas_compact import _compact_tile_rgba
-from relativisticraytracer_tpu_torch.ops.pallas_march import march_pallas
+from relativisticraytracer_tpu_torch.ops.pallas_march import _time_tensor, march_pallas
 from relativisticraytracer_tpu_torch.ops.pallas_sky import sky_background_windowed
 from relativisticraytracer_tpu_torch.render.camera import CameraState, generate_rays
+from relativisticraytracer_tpu_torch.render.march import render_hdr
+from relativisticraytracer_tpu_torch.render.pipeline import background
 from relativisticraytracer_tpu_torch.render.postfx import (
     apply_effects_and_tonemap,
     downsample_box,
@@ -129,18 +138,17 @@ def shard_settings(settings: RenderSettings, ny: int, nx: int,
 
 
 def _compact_ok(scene: SceneConfig, settings: RenderSettings, sky) -> bool:
-    return (settings.media_pass == "compact" and sky is not None
+    return (kernel_loop(settings) and settings.media_pass == "compact" and sky is not None
             and (scene.enable_disk or scene.enable_clouds))
 
 
 def resolve_interleave(scene: SceneConfig, settings: RenderSettings, interleave) -> bool:
     """The `interleave` knob: "auto" strip-interleaves whenever the compact
-    branch applies (compact media pass and a medium; the sky is checked at
-    call time), True/False force it. The JAX package also requires its
-    Pallas loop, which is the port's only loop."""
+    branch applies (the kernel loop, compact media pass and a medium; the
+    sky is checked at call time), True/False force it."""
     if interleave == "auto":
-        return settings.media_pass == "compact" and (scene.enable_disk
-                                                     or scene.enable_clouds)
+        return (kernel_loop(settings) and settings.media_pass == "compact"
+                and (scene.enable_disk or scene.enable_clouds))
     return bool(interleave)
 
 
@@ -216,8 +224,8 @@ def _shard_programs(scene: SceneConfig, settings: RenderSettings, mesh: Mesh,
     interleave = resolve_interleave(scene, settings, interleave)
     compact = _compact_ok(scene, settings, sky)
     if interleave and not compact:
-        raise ValueError("interleave=True requires the compact branch "
-                         "(media_pass='compact', a sky and a medium)")
+        raise ValueError("interleave=True requires the compact fast path "
+                         "(loop='pallas', media_pass='compact', sky + media enabled)")
 
     skies = {}
 
@@ -245,20 +253,26 @@ def _shard_programs(scene: SceneConfig, settings: RenderSettings, mesh: Mesh,
 
     origin, direction, uv_x, uv_y = generate_rays(W, H, camera, effects, mesh.devices[0, 0])
     max_steps = settings.resolved_max_steps(scene)
+    kernels = kernel_loop(settings)
 
     def plane_tile(i: int, j: int, dev: torch.device) -> torch.Tensor:
         def cut(a):
             return a[i * th:(i + 1) * th, j * tw:(j + 1) * tw].contiguous().to(dev)
 
-        intensity, trans, hit, vel = march_pallas(scene, origin.map(cut), direction.map(cut),
-                                                  time, max_steps)
-        if sky is not None:
-            bg = tile_background(sky_on(dev), vel, effects)
-        else:
-            zero = torch.zeros_like(trans)
-            bg = Vec3(zero, zero, zero)
-        hdr = Vec3(*(i_c + torch.where(hit, 0.0, b_c) * trans
-                     for i_c, b_c in zip(intensity, bg)))
+        if kernels:
+            intensity, trans, hit, vel = march_pallas(scene, origin.map(cut),
+                                                      direction.map(cut), time, max_steps)
+            if sky is not None:
+                bg = tile_background(sky_on(dev), vel, effects)
+            else:
+                zero = torch.zeros_like(trans)
+                bg = Vec3(zero, zero, zero)
+            hdr = Vec3(*(i_c + torch.where(hit, 0.0, b_c) * trans
+                         for i_c, b_c in zip(intensity, bg)))
+        else:  # the plain march, as render.pipeline.render_frame runs it
+            hdr, _ = render_hdr(scene, origin.map(cut), direction.map(cut),
+                                _time_tensor(time, dev), background(sky_on(dev), effects),
+                                max_steps=max_steps, loop=settings.loop, chunk=settings.chunk)
         ldr = apply_effects_and_tonemap(hdr, cut(uv_x), cut(uv_y), effects, scene.exposure)
         return pack_rgba8(downsample_box(ldr, ss))
 

@@ -278,11 +278,21 @@ def march(
     direction: Vec3,
     time,
     max_steps: Optional[int] = None,
+    loop: str = "while",
     chunk: int = CHUNK,
 ) -> MarchState:
     """March every ray to termination or the step cap. Returns the final
-    state with the input's shape."""
+    state with the input's shape.
+
+    loop="while": finished rays leave the working set every `chunk` steps,
+    and the march stops once none is left. loop="scan": a fixed trip count
+    of `max_steps` steps over every ray (finished rays step with h = 0), as
+    the JAX package's scan; bitwise the "while" state."""
     max_steps = scene.max_steps if max_steps is None else max_steps
+    if loop == "scan":
+        chunk = max(max_steps, 1)
+    elif loop != "while":
+        raise ValueError(f"unknown loop strategy {loop!r}")
     shape = origin.x.shape
     flat = lambda a: a.reshape(-1).clone()  # noqa: E731
     full = init_state(origin.map(flat), direction.map(flat))
@@ -312,11 +322,14 @@ def render_hdr(
     time,
     sky_fn,
     max_steps: Optional[int] = None,
+    loop: str = "while",
+    chunk: int = CHUNK,
 ) -> Tuple[Vec3, MarchState]:
     """March + background compositing (raymarcher.cu:123-150).
     `sky_fn(d: Vec3) -> Vec3` samples the background for the final ray
-    direction (black where the horizon was hit)."""
-    state = march(scene, origin, direction, time, max_steps)
+    direction (black where the horizon was hit). `loop` and `chunk` as in
+    `march`."""
+    state = march(scene, origin, direction, time, max_steps, loop=loop, chunk=chunk)
     bg = sky_fn(normalize(state.v))
     hit = state.hit_horizon
     bg = Vec3(*(torch.where(hit, 0.0, c) for c in bg))

@@ -3,12 +3,14 @@
 `render_frame` is the plain path: ray gen -> masked geodesic march ->
 radiative transfer -> skybox composite -> post FX -> tone map -> uint8
 pack, all plain PyTorch. `Renderer` drives the frame program its
-settings name on the device it is given (a CUDA card unless the caller
-asks for the CPU): ops/pallas_compact.render_frame_pallas_compact (record,
-replay and sky kernels; the fused inline march where there is no sky or no
-medium) for `media_pass="compact"`, ops/pallas_march.render_frame_pallas
-(the fused inline march) for `media_pass="inline"`. On the CPU each kernel
-is its plain PyTorch version. Nothing probes the machine.
+settings name on the device it is given (a CUDA card
+unless the caller asks for the CPU). `loop="auto"` (default) or "pallas":
+ops/pallas_compact.render_frame_pallas_compact (record, replay and sky
+kernels; the fused inline march where there is no sky or no medium) for
+`media_pass="compact"`, ops/pallas_march.render_frame_pallas (the fused
+inline march) for `media_pass="inline"`; on the CPU each kernel is its
+plain PyTorch version. `loop="while"` or "scan": `render_frame`, on any
+device. Nothing probes the machine.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from relativisticraytracer_tpu_torch.config import (
     CameraEffects,
     RenderSettings,
     SceneConfig,
+    kernel_loop,
 )
 from relativisticraytracer_tpu_torch.core.vecmath import Vec3
 from relativisticraytracer_tpu_torch.ops.pallas_compact import render_frame_pallas_compact
@@ -40,6 +43,17 @@ from relativisticraytracer_tpu_torch.render.skybox import (
 )
 
 
+def background(sky: Optional[Skybox], effects: CameraEffects):
+    """The plain march's `sky_fn`: the sky behind a final direction, black
+    without a sky."""
+    def sky_fn(d: Vec3) -> Vec3:
+        if sky is None:
+            zero = torch.zeros_like(d.x)
+            return Vec3(zero, zero, zero)
+        return sample_sky_fast(sky, d, effects)
+    return sky_fn
+
+
 def render_frame(
     scene: SceneConfig,
     settings: RenderSettings,
@@ -51,21 +65,17 @@ def render_frame(
     device="cuda",
 ) -> torch.Tensor:
     """Render one frame on `device` with the plain march -> uint8[H, W, 4],
-    top-down row order."""
+    top-down row order. `settings.loop` "scan" marches a fixed trip count;
+    any other value marches as "while" (the JAX package maps "pallas" to
+    "while" here), dropping finished rays every `settings.chunk` steps."""
     ss = settings.supersample
     origin, direction, uv_x, uv_y = generate_rays(
         settings.width * ss, settings.height * ss, camera, effects, device
     )
-    if sky is not None:
-        def sky_fn(d: Vec3) -> Vec3:
-            return sample_sky_fast(sky, d, effects)
-    else:
-        def sky_fn(d: Vec3) -> Vec3:
-            zero = torch.zeros_like(d.x)
-            return Vec3(zero, zero, zero)
-
     hdr, _ = render_hdr(scene, origin, direction, _time_tensor(time, device),
-                        sky_fn, max_steps=settings.resolved_max_steps(scene))
+                        background(sky, effects), max_steps=settings.resolved_max_steps(scene),
+                        loop="scan" if settings.loop == "scan" else "while",
+                        chunk=settings.chunk)
     ldr = apply_effects_and_tonemap(hdr, uv_x, uv_y, effects, scene.exposure)
     return pack_rgba8(downsample_box(ldr, ss))
 
@@ -75,7 +85,8 @@ class Renderer:
 
     Keeps the skybox resident on that device (the one-time upload, analog
     of main.cpp:247-248). `device` decides the path: "cuda[:N]" (the
-    default) launches the kernels, "cpu" runs their plain versions.
+    default) launches the kernels, "cpu" runs their plain versions;
+    `settings.loop` "while" or "scan" runs the plain march on either.
     `render_on` renders on another device with a per-device sky replica."""
 
     def __init__(
@@ -90,8 +101,14 @@ class Renderer:
         self.scene = scene
         self.settings = settings
         self.device = torch.device(device)
-        self._fn = (render_frame_pallas_compact if settings.media_pass == "compact"
-                    else render_frame_pallas)
+        # the frame program `loop` and `media_pass` pick (JAX:
+        # render/pipeline._compiled_render); an unknown `loop` raises here
+        if not kernel_loop(settings):
+            self._fn = render_frame
+        elif settings.media_pass == "compact":
+            self._fn = render_frame_pallas_compact
+        else:
+            self._fn = render_frame_pallas
         self._sky_cache: dict = {}
         # `skybox` shares an already-built texture; `skybox_rgba` uploads a
         # host array.

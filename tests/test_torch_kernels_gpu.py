@@ -587,3 +587,35 @@ def test_animation_job_on_the_card_is_render_np(cuda, tmp_path, monkeypatch, tra
         want.append(frame.cpu().numpy().tobytes())
     assert stats["frames_written"] == 6
     assert pathlib.Path(stats["out_path"]).read_bytes() == b"".join(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_plain_loop_frame_on_the_card_matches_the_compact_kernel_frame(cuda, loop):
+    """loop="while"/"scan" renders with the plain march on the card, no
+    kernel launched, within RMSE < 1e-3 of the compact kernel frame (ray
+    generation differs by an ulp here and there: a few hit pixels flip)."""
+    lib = cuda_lib.kernels()
+    scene = SceneConfig(max_steps=400)
+    sky = skybox_from_array(SKY, cuda)
+    cam = camera_state_from_pose(*HEAD)
+    kern = Renderer(scene, RenderSettings(width=96, height=54), skybox=sky,
+                    device=cuda).render_np(cam, CameraEffects(), 10.0)
+    lib.reset_launches()
+    plain = Renderer(scene, RenderSettings(width=96, height=54, loop=loop), skybox=sky,
+                     device=cuda).render_np(cam, CameraEffects(), 10.0)
+    assert not any(lib.launches.values())
+    d = kern[..., :3].astype(np.int64) - plain[..., :3].astype(np.int64)
+    assert float(np.sqrt(np.mean((d / 255.0) ** 2))) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("media_pass", ["compact", "inline"])
+def test_fuzz_parity_on_the_card(cuda, media_pass):
+    """The fuzz tool's first three cases (spin 0.9; phase 13 of
+    chip_smoke.py runs all 24, both spins) pass on the card for each
+    kernel program."""
+    from relativisticraytracer_tpu_torch.tools import fuzz_parity
+
+    rep = fuzz_parity.run(cases=3, media_pass=media_pass, device=cuda, log=None)
+    assert rep["pass"], rep["cases"]

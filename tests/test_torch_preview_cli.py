@@ -251,7 +251,7 @@ def test_cli_interactive_args():
         cli_main(["interactive", "--help"])
     assert e.value.code == 0
     with pytest.raises(SystemExit):
-        cli_main(["interactive", "--loop", "while"])  # the port has --device instead
+        cli_main(["interactive", "--loop", "fused"])  # not one of JAX's --loop choices
 
 
 def test_cli_interactive_terminal(monkeypatch, capsys, sky_png):
