@@ -130,11 +130,16 @@ script exits non-zero without the final result line:
      400 steps — for the compact program (record, replay, sky) and the
      inline program (march_sky, sky) against loop="while" (the plain
      march) on the card, each case at RMSE < 1e-3 with fewer than 1e-3 of
-     its pixels off by more than 1 LSB, each program's kernels launched in
-     its run; one loop="while" headline frame (1920x1080, 2000 steps, no
-     kernel launched) against the compact kernel frame, RMSE < 1e-3, with
-     both synchronized times; the CLI's still --loop while and --loop
-     pallas (96x64, 64 steps) as subprocesses, within the same gate.
+     its pixels off by more than 1 LSB and every case bitwise, each
+     program's kernels launched in its run, the plain frames' seconds; the
+     plain march's host syncs: a loop="scan" frame of case 0 (bitwise its
+     "while" frame, no host sync by torch's sync debug count) and two
+     16-step frames under torch.profiler (scan: no cudaStreamSynchronize;
+     while, chunk 4: at most 4 syncs); one loop="while" headline frame
+     (1920x1080, 2000 steps, no kernel launched) bitwise the compact kernel
+     frame, with both synchronized times and at most ceil(2000 / 64) = 32
+     host syncs (torch's count); the CLI's still --loop while and --loop
+     pallas (96x64, 64 steps) as subprocesses, within the fuzz's gate.
 
 It then prints the kernel table as one JSON line (each kernel's launches
 on its path, max error against its plain version, ms, plain ms, the bound
@@ -300,13 +305,13 @@ class StepCounter:
         self._rm = rm
         self._orig = step, media, scatter = rm.march_step, rm._media_contribution, rm._scatter
 
-        def counted_step(scene, st, time, media_hook=None):
+        def counted_step(scene, st, time, media_hook=None, **kw):
             self.n[0] += st.active.sum()
             if self._chunk is None:
                 self._chunk = torch.zeros((3,) + tuple(st.active.shape), dtype=torch.int64,
                                           device=st.active.device)
             self._chunk[0] += st.active
-            return step(scene, st, time, media_hook)
+            return step(scene, st, time, media_hook, **kw)
 
         def counted_scatter(full, ids, part):
             if self.per_ray is None:
@@ -316,12 +321,12 @@ class StepCounter:
             self._chunk = None
             return scatter(full, ids, part)
 
-        def counted_media(*args, probe_disk=None, probe_cloud=None):
+        def counted_media(*args, probe_disk=None, probe_cloud=None, **kw):
             for k, probe in ((1, probe_disk), (2, probe_cloud)):
                 if probe is not None:
                     self.n[k] += probe.sum()
                     self._chunk[k] += probe
-            return media(*args, probe_disk=probe_disk, probe_cloud=probe_cloud)
+            return media(*args, probe_disk=probe_disk, probe_cloud=probe_cloud, **kw)
 
         rm.march_step, rm._media_contribution = counted_step, counted_media
         rm._scatter = counted_scatter
@@ -1129,13 +1134,52 @@ FUZZ_KERNELS = {"compact": ("record", "replay_rounds", "replay_march", "replay_s
                 "inline": ("march_sky", "sky")}
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def counted_syncs(fn):
+    """(fn's result, the host syncs torch made in the call): its sync debug
+    mode "warn" flags every synchronizing call it makes (a stream or
+    device synchronize, a blocking copy, nonzero's count)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def traced_syncs(fn):
+    """One call of `fn` under torch.profiler (no trace written): the
+    cudaStreamSynchronize calls the profiler recorded, and whether an event
+    recorded right after `fn` returned was still pending."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        returned = torch.cuda.Event()
+        returned.record()
+        pending = not returned.query()
+        torch.cuda.synchronize()
+    return host_syncs(prof), pending
+
+
 def phase13_loop(lib, dev, head_sky, smi, tmp):
     """Phase 13: the `loop` choice on the card — the fuzz tool
     (tools/fuzz_parity, its defaults: 24 cases, 96x64, 400 steps, both
     spins) for the compact and the inline program against the plain march,
-    the launches of each program's kernels in its run; one full-size
-    loop="while" frame (the headline) against the compact kernel frame;
-    the CLI's still with --loop while and --loop pallas as subprocesses."""
+    the launches of each program's kernels in its run, every case bitwise,
+    and the seconds of each plain frame; a loop="scan" frame of case 0,
+    bitwise its "while" frame, with no host sync (torch's sync debug
+    count), and two short plain frames traced (scan: no
+    cudaStreamSynchronize; while: at most one sync a chunk); one
+    full-size loop="while" frame (the headline) bitwise the compact kernel
+    frame, with at most ceil(2000 / chunk) host syncs; the CLI's still with
+    --loop while and --loop pallas as subprocesses."""
     import os
     import sys
 
@@ -1143,6 +1187,10 @@ def phase13_loop(lib, dev, head_sky, smi, tmp):
     from relativisticraytracer_tpu_torch.io.image import decode_png
     from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
     from relativisticraytracer_tpu_torch.render.pipeline import Renderer
+    from relativisticraytracer_tpu_torch.render.skybox import (
+        procedural_starfield,
+        skybox_from_array,
+    )
     from relativisticraytracer_tpu_torch.tools import fuzz_parity
 
     plain_frames = {}
@@ -1166,13 +1214,54 @@ def phase13_loop(lib, dev, head_sky, smi, tmp):
               f"{rep['pass']}; {wall:.1f} s (the plain frames rendered in the first run); "
               f"launches {ran}", flush=True)
         missing = [k for k in FUZZ_KERNELS[program] if not ran.get(k)]
-        if not rep["pass"] or missing or spins != [0.0, 0.9]:
-            bad = [(k, c) for k, c in enumerate(rep["cases"]) if not c["ok"]]
-            raise AssertionError(f"fuzz {program}: failed cases {bad}, kernels not launched "
-                                 f"{missing}, spins {spins}")
+        bitwise = sum(c["max_lsb"] == 0 for c in rep["cases"])
+        print(f"phase 13 fuzz ({program}): cases bitwise the plain march's frame "
+              f"{bitwise}/{len(rep['cases'])}", flush=True)
+        if rep["plain_seconds"]:
+            secs = rep["plain_seconds"]
+            print(f"phase 13 fuzz plain frames (loop=\"while\", 96x64 400 steps; {smi}): "
+                  f"{len(secs)} frames {sum(secs):.1f} s, {min(secs):.3f}-{max(secs):.3f} s a "
+                  f"frame", flush=True)
+        if not rep["pass"] or missing or spins != [0.0, 0.9] or bitwise != len(rep["cases"]):
+            bad = [(k, c) for k, c in enumerate(rep["cases"]) if not c["ok"] or c["max_lsb"]]
+            raise AssertionError(f"fuzz {program}: failed or not bitwise cases {bad}, kernels "
+                                 f"not launched {missing}, spins {spins}")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "fuzz_parity_programs.json").write_text(
         json.dumps(dict(device=torch.cuda.get_device_name(dev), power=smi, **reports), indent=1))
+
+    # the plain march's host syncs: a "scan" frame of fuzz case 0 (bitwise
+    # its "while" frame) counted by torch, then two short frames traced
+    spin, pos, yaw, pitch, t = next(fuzz_parity.poses(1, 7))
+    cam0 = camera_state_from_pose(pos, yaw, pitch)
+    sky0 = skybox_from_array(procedural_starfield(128, 256, device=dev), dev)
+    small = dict(width=96, height=64)
+    scan = Renderer(SceneConfig(spin_a=spin, max_steps=400), RenderSettings(loop="scan", **small),
+                    skybox=sky0, device=dev)
+    t0 = time.perf_counter()
+    s_frame, s_syncs = counted_syncs(lambda: scan.render(cam0, CameraEffects(), t))
+    s_frame = s_frame.cpu().numpy()
+    s_wall = time.perf_counter() - t0
+    s_equal = bool(np.array_equal(s_frame, plain_frames[0]))
+    traced = {}
+    for loop in ("scan", "while"):
+        short = Renderer(SceneConfig(spin_a=spin, max_steps=16),
+                         RenderSettings(loop=loop, chunk=4, **small), skybox=sky0, device=dev)
+        short.render(cam0, CameraEffects(), t)
+        torch.cuda.synchronize()
+        _, counted = counted_syncs(lambda: short.render(cam0, CameraEffects(), t))
+        torch.cuda.synchronize()
+        traced[loop] = traced_syncs(lambda: short.render(cam0, CameraEffects(), t)) + (counted,)
+    print(f"phase 13 plain march host syncs: loop=\"scan\" 96x64 400 steps (fuzz case 0) "
+          f"{s_syncs} (torch's count), {s_wall:.3f} s synchronized, bitwise the \"while\" frame "
+          f"{s_equal}; 16 steps with chunk 4, traced: "
+          + ", ".join(f"{k} cudaStreamSynchronize {v[0]} (torch's count {v[2]}), device work "
+                      f"pending on return {v[1]}" for k, v in traced.items()), flush=True)
+    if s_syncs or not s_equal or traced["scan"][0] or traced["scan"][2]:
+        raise AssertionError(f"scan frame: syncs {s_syncs}, bitwise while {s_equal}, traced "
+                             f"{traced}")
+    if not 0 < traced["while"][2] <= 4:
+        raise AssertionError(f"short while frame: traced {traced['while']}")
 
     # one full-size loop="while" frame: the headline against the compact kernel frame
     scene = SceneConfig()
@@ -1184,16 +1273,23 @@ def phase13_loop(lib, dev, head_sky, smi, tmp):
     kern.render(cam, eff, 1.0)
     k_frame, k_ms = sync_ms(lambda: kern.render(cam, eff, 1.0), reps=3)
     lib.reset_launches()
-    w_frame, w_ms = sync_ms(lambda: plain.render(cam, eff, 1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_frame, w_syncs = counted_syncs(lambda: plain.render(cam, eff, 1.0))
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t0) * 1000.0
     w_launches = {k: v for k, v in lib.launches.items() if v}
     c = fuzz_parity.compare(k_frame.cpu().numpy(), w_frame.cpu().numpy(), 1)
+    most = -(-scene.max_steps // plain.settings.chunk)
     print(f"phase 13 loop=\"while\" {wh['width']}x{wh['height']} {scene.max_steps} steps "
           f"(headline pose, 2048x4096 starfield; {smi}): {w_ms:.1f} ms synchronized against the "
           f"compact kernel frame's {k_ms:.3f} ms (mean of 3); RMSE {c['rmse']:.3g}, max LSB "
           f"{c['max_lsb']}, share of pixels over 1 LSB {c['over_lsb_frac']:.5f}; kernel launches "
-          f"in the while frame {w_launches or 'none'}", flush=True)
-    if not c["rmse"] < 1e-3 or w_launches:
-        raise AssertionError(f"while frame: RMSE {c['rmse']}, launches {w_launches}")
+          f"in the while frame {w_launches or 'none'}; host syncs {w_syncs} (torch's count, at "
+          f"most {most}: one a chunk of {plain.settings.chunk})", flush=True)
+    if c["max_lsb"] or w_launches or w_syncs > most:
+        raise AssertionError(f"while frame: RMSE {c['rmse']}, max LSB {c['max_lsb']}, launches "
+                             f"{w_launches}, syncs {w_syncs}")
 
     # the CLI's --loop as subprocesses (the library is already built)
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -10,10 +10,12 @@ the JAX package holds them as float32 arrays and the frame math combines
 them in float32.
 
 `RenderSettings` keeps every field of the JAX settings and the same
-validation errors. The port has no `resolved_loop()` that probes the
-machine: `loop` picks the frame program (`kernel_loop`), and the renderer's
-explicit `device` decides how the kernel programs run (`cuda` launches the
-hand-written kernels, `cpu` runs their plain PyTorch versions).
+validation errors. Its `resolved_loop()` takes JAX's call form but probes
+no machine: it names the frame program `loop` picks (`kernel_loop` reads
+it), so "auto" resolves to "pallas" on every device, where JAX resolves it
+to "while" off a TPU. The renderer's explicit `device` decides how the
+kernel programs run (`cuda` launches the hand-written kernels, `cpu` runs
+their plain PyTorch versions).
 """
 
 from __future__ import annotations
@@ -232,6 +234,11 @@ class RenderSettings:
                 f"{self.sky_gather!r}"
             )
 
+    def resolved_loop(self) -> str:
+        """The frame program's loop: "pallas" for "auto" (the kernel
+        programs, on any device), else `loop` itself."""
+        return "pallas" if self.loop == "auto" else self.loop
+
     def resolved_max_steps(self, scene: SceneConfig) -> int:
         """The march step cap: this override if set, else the scene's."""
         return self.max_steps if self.max_steps is not None else scene.max_steps
@@ -241,8 +248,9 @@ def kernel_loop(settings: RenderSettings) -> bool:
     """True where `settings.loop` picks the kernel programs, False where it
     picks the plain march (JAX: render/pipeline._compiled_render,
     render/march.march); raises the JAX package's error for any other."""
-    if settings.loop in ("auto", "pallas"):
+    loop = settings.resolved_loop()
+    if loop == "pallas":
         return True
-    if settings.loop in ("while", "scan"):
+    if loop in ("while", "scan"):
         return False
     raise ValueError(f"unknown loop strategy {settings.loop!r}")

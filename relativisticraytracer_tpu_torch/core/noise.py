@@ -17,9 +17,6 @@ from relativisticraytracer_tpu_torch.core.vecmath import Vec3, length, lerp
 _K = 0.1031    # hash multiplier (math_utils.h:66,92)
 _C = 33.33     # hash offset (math_utils.h:67-69,93)
 
-# corner order n000, n100, n010, n110, n001, n101, n011, n111
-_CORNERS = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (1.0, 1.0, 0.0),
-            (0.0, 0.0, 1.0), (1.0, 0.0, 1.0), (0.0, 1.0, 1.0), (1.0, 1.0, 1.0))
 
 
 def _frac_signed(x):
@@ -56,9 +53,12 @@ def hash31(p: Vec3) -> torch.Tensor:
 
 
 def _corner_offsets(like: torch.Tensor, axis: int) -> torch.Tensor:
-    offs = torch.tensor([c[axis] for c in _CORNERS], dtype=torch.float32,
-                        device=like.device)
-    return offs.reshape((8,) + (1,) * like.dim())
+    """The eight corners' offsets on `axis`, in the order n000, n100,
+    n010, n110, n001, n101, n011, n111: corner i's offset is bit `axis` of
+    i. Made on the device: a copy from pageable host memory would wait for
+    the device's queue."""
+    bits = (torch.arange(8, device=like.device) >> axis) & 1
+    return bits.to(torch.float32).reshape((8,) + (1,) * like.dim())
 
 
 def noise3D(p: Vec3) -> torch.Tensor:

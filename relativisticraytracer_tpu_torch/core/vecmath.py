@@ -40,9 +40,8 @@ class Vec3(NamedTuple):
         return Vec3(fn(self.x), fn(self.y), fn(self.z))
 
 
-def vec3(x, y, z, device=None) -> Vec3:
-    return Vec3(*(torch.as_tensor(c, dtype=torch.float32, device=device)
-                  for c in (x, y, z)))
+def vec3(x, y, z, dtype=torch.float32, device="cuda") -> Vec3:
+    return Vec3(*(torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z)))
 
 
 def from_array(a: Tensor) -> Vec3:

@@ -60,8 +60,13 @@ SkyMarchResult = Tuple[Vec3, torch.Tensor, torch.Tensor, torch.Tensor, torch.Ten
 
 def _time_tensor(time, device) -> torch.Tensor:
     """The sim clock as a float32 scalar tensor: products such as
-    `time * 0.35` are then float32 products, as in the JAX package."""
-    return torch.as_tensor(time, dtype=torch.float32, device=device).reshape(())
+    `time * 0.35` are then float32 products, as in the JAX package. A host
+    value is filled on the device: a copy from pageable host memory would
+    wait for the device's queue."""
+    if isinstance(time, torch.Tensor):
+        return time.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(np.asarray(time, dtype=np.float32).reshape(())),
+                      dtype=torch.float32, device=device)
 
 
 def _device(device) -> torch.device:

@@ -79,7 +79,7 @@ def default_camera() -> CameraState:
     return camera_state_from_pose((0.0, 10.0, -60.0), 0.0, -10.0)
 
 
-def uv_planes(width: int, height: int, effects: CameraEffects, device,
+def uv_planes(width: int, height: int, effects: CameraEffects, device="cuda",
               origin=None, img_w: Optional[int] = None, img_h: Optional[int] = None,
               strips: Optional[Tuple[int, int]] = None,
               cstrips: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,7 +143,7 @@ def generate_rays(
     height: int,
     cam: CameraState,
     effects: CameraEffects,
-    device,
+    device="cuda",
 ) -> Tuple[Vec3, Vec3, torch.Tensor, torch.Tensor]:
     """Primary rays for every pixel, top-down row order, on `device`.
 

@@ -13,9 +13,20 @@ Step semantics match the JAX package (reference: src/raymarcher.cu:41-121):
 
 Finished rays are frozen by stepping with h = 0 (p + 0 == p bitwise) and
 are dropped from the working set every `chunk` steps; rays are
-independent, so that is exact. The media blocks run only on the rays
+independent, so that is exact. A medium adds its terms only on the rays
 whose skip probe is True: a False probe contributes exactly zero
 (densities.disk_probe_bounds / cloud_probe_bounds), so this is exact too.
+On the CPU each medium's block runs on the gathered probe-True rays (the
+CPU's vector math rounds by batch position, so the gathered form keeps
+every CPU frame as it was); on a CUDA device it runs densely over the
+working set and `torch.where` keeps the accumulator off the probe, the
+same bits with no host sync. A dense step launches ~2,200 operators, so
+on a CUDA device each chunk's first step runs eagerly and the rest replay
+it as one captured CUDA graph (`_steps`).
+
+Host syncs on a CUDA device: loop="scan" makes none before the state is
+returned; loop="while" makes one a chunk (the working-set drop reads the
+count of live rays), at most ceil(max_steps / chunk) - 1 in a march.
 This is the plain version every march kernel is held against.
 """
 
@@ -135,11 +146,16 @@ def _cloud_block(scene: SceneConfig, rel: Vec3, r2, v_new: Vec3, in_cloud_zone, 
     )
 
 
-def _accumulate(acc, block, sel, *args):
-    """acc += block(*args) on the rays `sel` (None = every ray)."""
+def _accumulate(acc, block, sel, *args, dense=False):
+    """acc += block(*args) on the rays `sel` (None = every ray). `dense`
+    runs the block on every ray and keeps `acc` off `sel`: bitwise the
+    gathered a[idx] + t on the selected rays and exactly `acc` elsewhere,
+    with no host sync."""
     if sel is None:
         terms = block(*args)
         return [a + t for a, t in zip(acc, terms)]
+    if dense:
+        return [torch.where(sel, a + t, a) for a, t in zip(acc, block(*args))]
     idx = torch.nonzero(sel).squeeze(1)
     if idx.numel() == 0:
         return acc
@@ -157,18 +173,20 @@ def _accumulate(acc, block, sel, *args):
 
 def _media_contribution(scene: SceneConfig, rel: Vec3, r2, v_new: Vec3,
                         in_disk_zone, in_cloud_zone, time,
-                        probe_disk=None, probe_cloud=None):
+                        probe_disk=None, probe_cloud=None, dense=False):
     """Per-step emission/opacity (raymarcher.cu:67-105). `rel`/`r2` are the
     PRE-step position; `v_new` the POST-step velocity. Given probes, each
-    medium's block runs only on the rays whose probe is True (exact)."""
+    medium adds its terms only on the rays whose probe is True (exact):
+    its block runs on those rays gathered, or with `dense` on every ray
+    (see _accumulate)."""
     zero = torch.zeros_like(r2)
     acc = [zero, zero, zero, zero]
     if scene.enable_disk:
         acc = _accumulate(acc, _disk_block, probe_disk,
-                          scene, rel, r2, v_new, in_disk_zone, time)
+                          scene, rel, r2, v_new, in_disk_zone, time, dense=dense)
     if scene.enable_clouds:
         acc = _accumulate(acc, _cloud_block, probe_cloud,
-                          scene, rel, r2, v_new, in_cloud_zone, time)
+                          scene, rel, r2, v_new, in_cloud_zone, time, dense=dense)
     emit_r, emit_g, emit_b, opacity = acc
     return Vec3(emit_r, emit_g, emit_b), opacity
 
@@ -210,13 +228,17 @@ def media_zones(scene: SceneConfig, rel: Vec3, r2):
 
 
 def march_step(scene: SceneConfig, state: MarchState, time,
-               media_hook=None) -> MarchState:
+               media_hook=None, *, dense=None) -> MarchState:
     """One reference march iteration (raymarcher.cu:41-121), fully masked.
 
     `media_hook` replaces the shading block (the segment recorder of
     ops/pallas_compact.py): it sees the PRE-step position/velocity and
-    everything the probes need and returns (intensity, trans)."""
+    everything the probes need and returns (intensity, trans). `dense`
+    (None: True on a CUDA device) runs the media blocks densely (see
+    _accumulate); the CPU keeps the gathered form."""
     p, v, intensity, trans, hit, active = state
+    if dense is None:
+        dense = active.device.type == "cuda"
     eh = scene.event_horizon
 
     rel = _recenter(scene, p)
@@ -250,7 +272,7 @@ def march_step(scene: SceneConfig, state: MarchState, time,
                                                in_cloud_zone, active)
         emit, opacity = _media_contribution(
             scene, rel, r2, v, in_disk_zone, in_cloud_zone, time,
-            probe_disk=probe_disk, probe_cloud=probe_cloud,
+            probe_disk=probe_disk, probe_cloud=probe_cloud, dense=dense,
         )
         intensity, trans = compose_step(intensity, trans, emit.x, emit.y,
                                         emit.z, opacity, in_media, h)
@@ -263,13 +285,64 @@ def march_step(scene: SceneConfig, state: MarchState, time,
     return MarchState(p, v, intensity, trans, hit, active)
 
 
+def _fields(st: MarchState) -> list:
+    return (list(st.p) + list(st.v) + list(st.intensity)
+            + [st.transmittance, st.hit_horizon, st.active])
+
+
+def _state(fields) -> MarchState:
+    return MarchState(Vec3(*fields[0:3]), Vec3(*fields[3:6]), Vec3(*fields[6:9]), *fields[9:])
+
+
 def _scatter(full: MarchState, ids, part: MarchState) -> None:
     """full[ids] = part, field by field (in place)."""
-    for dst, src in zip(list(full.p) + list(full.v) + list(full.intensity)
-                        + [full.transmittance, full.hit_horizon, full.active],
-                        list(part.p) + list(part.v) + list(part.intensity)
-                        + [part.transmittance, part.hit_horizon, part.active]):
+    for dst, src in zip(_fields(full), _fields(part)):
         dst[ids] = src
+
+
+# Per CUDA device: the side stream that every march step graph is captured
+# and replayed on, the graph memory pool the captures share, and the last
+# graph, which keeps that pool live (a pool whose graphs are all gone cannot
+# be shared again). A capture reuses the blocks the one before it freed on
+# that stream; the graphs replay one after another in stream order, and an
+# earlier one never again. A pool per capture would stay cached until the
+# allocator empties its cache, which it cannot do during a capture: a few
+# 1080p marches filled the card that way.
+_GRAPHS: dict = {}
+
+
+def _steps(scene: SceneConfig, st: MarchState, time, n: int, dense: bool) -> MarchState:
+    """`n` march steps from `st`. With the dense form on a CUDA device the
+    first step runs eagerly and the other n - 1 replay it captured as one
+    CUDA graph: the same kernels on the same inputs, so the same bits, at
+    one launch a step where an eager step launches ~2,200 operators. The
+    graph runs on the device's side stream (_GRAPHS), ordered after the
+    current stream and before its next work, so nothing waits on the
+    host."""
+    st = march_step(scene, st, time, dense=dense)
+    if n == 1 or not (dense and st.active.is_cuda):
+        for _ in range(n - 1):
+            st = march_step(scene, st, time, dense=dense)
+        return st
+    static = [a.clone() for a in _fields(st)]
+    dev = st.active.device
+    if dev not in _GRAPHS:
+        _GRAPHS[dev] = [torch.cuda.Stream(dev), torch.cuda.graph_pool_handle(), None]
+    side, pool, _ = _GRAPHS[dev]
+    current = torch.cuda.current_stream(dev)
+    side.wait_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.stream(side):
+        graph.capture_begin(pool)
+        for dst, src in zip(static, _fields(march_step(scene, _state(static), time,
+                                                        dense=True))):
+            dst.copy_(src)
+        graph.capture_end()
+        for _ in range(n - 1):
+            graph.replay()
+    current.wait_stream(side)
+    _GRAPHS[dev][2] = graph
+    return _state(static)
 
 
 def march(
@@ -280,6 +353,8 @@ def march(
     max_steps: Optional[int] = None,
     loop: str = "while",
     chunk: int = CHUNK,
+    *,
+    dense: Optional[bool] = None,
 ) -> MarchState:
     """March every ray to termination or the step cap. Returns the final
     state with the input's shape.
@@ -287,7 +362,8 @@ def march(
     loop="while": finished rays leave the working set every `chunk` steps,
     and the march stops once none is left. loop="scan": a fixed trip count
     of `max_steps` steps over every ray (finished rays step with h = 0), as
-    the JAX package's scan; bitwise the "while" state."""
+    the JAX package's scan; bitwise the "while" state. `dense` as in
+    march_step (None: from the rays' device)."""
     max_steps = scene.max_steps if max_steps is None else max_steps
     if loop == "scan":
         chunk = max(max_steps, 1)
@@ -297,15 +373,18 @@ def march(
     flat = lambda a: a.reshape(-1).clone()  # noqa: E731
     full = init_state(origin.map(flat), direction.map(flat))
     ids = torch.arange(full.active.numel(), device=full.active.device)
+    if dense is None:
+        dense = ids.device.type == "cuda"
     st = full.index(ids)  # the working set: a copy, never aliasing `full`
     i = 0
     while i < max_steps and ids.numel():
-        for _ in range(min(chunk, max_steps - i)):
-            st = march_step(scene, st, time)
-        i += min(chunk, max_steps - i)
+        n = min(chunk, max_steps - i)
+        st = _steps(scene, st, time, n, dense)
+        i += n
         _scatter(full, ids, st)
-        keep = torch.nonzero(st.active).squeeze(1)
-        ids, st = ids[keep], st.index(keep)
+        if i < max_steps:  # the drop syncs; after the last chunk none is needed
+            keep = torch.nonzero(st.active).squeeze(1)
+            ids, st = ids[keep], st.index(keep)
 
     def unflat(a):
         return a.reshape(shape)

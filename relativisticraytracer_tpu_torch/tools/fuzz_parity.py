@@ -84,7 +84,9 @@ def run(cases: int = 24, seed: int = 7, width: int = 96, height: int = 64,
     """The fuzz for one kernel program (`media_pass`) on `device`; returns
     the report. `plain_frames` holds the "while" renderer's frame of each
     case; pass the same dict to a run at the same arguments for the other
-    program and they are rendered once."""
+    program and they are rendered once. The report's `plain_seconds` holds
+    the wall seconds of each plain frame this run rendered (each ends in
+    its copy to the host)."""
     device = torch.device(device)
     sky = skybox_from_array(procedural_starfield(128, 256, device=device), device)
     renderers = {}
@@ -101,12 +103,15 @@ def run(cases: int = 24, seed: int = 7, width: int = 96, height: int = 64,
               "cases": [], "max_lsb_budget": max_lsb, "rmse_gate": RMSE_GATE,
               "over_lsb_frac_gate": FRAC_GATE}
     t0 = _time.perf_counter()
+    plain_seconds = []
     for k, (spin, pos, yaw, pitch, t) in enumerate(poses(cases, seed)):
         cam = camera_state_from_pose(pos, yaw, pitch)
         effects = CameraEffects()
         got = renderers[(spin, "pallas")].render_np(cam, effects, t)
         if k not in plain_frames:
+            t1 = _time.perf_counter()
             plain_frames[k] = renderers[(spin, "while")].render_np(cam, effects, t)
+            plain_seconds.append(_time.perf_counter() - t1)
         c = compare(got, plain_frames[k], max_lsb)
         report["cases"].append({
             "spin": spin, "pos": [round(p, 2) for p in pos],
@@ -121,7 +126,7 @@ def run(cases: int = 24, seed: int = 7, width: int = 96, height: int = 64,
         worst_rmse=max((c["rmse"] for c in rows), default=0.0),
         worst_mismatch_frac=max((c["mismatch_frac"] for c in rows), default=0.0),
         worst_over_lsb_frac=max((c["over_lsb_frac"] for c in rows), default=0.0),
-        seconds=_time.perf_counter() - t0,
+        seconds=_time.perf_counter() - t0, plain_seconds=plain_seconds,
         **{"pass": all(c["ok"] for c in rows)})
     return report
 

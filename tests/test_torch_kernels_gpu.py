@@ -619,3 +619,81 @@ def test_fuzz_parity_on_the_card(cuda, media_pass):
 
     rep = fuzz_parity.run(cases=3, media_pass=media_pass, device=cuda, log=None)
     assert rep["pass"], rep["cases"]
+
+
+def _plain_renderer(cuda, loop):
+    """A warm plain-march renderer on the card (96x54, 200 steps, chunk 64)."""
+    r = Renderer(SceneConfig(max_steps=200), RenderSettings(width=96, height=54, loop=loop),
+                 skybox=skybox_from_array(SKY, cuda), device=cuda)
+    r.render(camera_state_from_pose(*HEAD), CameraEffects(), 10.0)
+    torch.cuda.synchronize()
+    return r
+
+
+@pytest.mark.gpu
+def test_plain_scan_frame_on_the_card_makes_no_host_sync(cuda):
+    """loop="scan" dispatches its whole frame without the host waiting:
+    under torch's sync debug mode "error" any host sync would raise."""
+    r = _plain_renderer(cuda, "scan")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame = r.render_on(None, camera_state_from_pose(*HEAD), CameraEffects(), 10.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert frame.shape == (54, 96, 4) and frame.dtype == torch.uint8
+
+
+@pytest.mark.gpu
+def test_plain_while_frame_on_the_card_syncs_once_a_chunk(cuda):
+    """loop="while" waits for the device once a chunk, when it drops the
+    finished rays: at most ceil(max_steps / chunk) syncs a frame."""
+    import math
+    import warnings
+
+    r = _plain_renderer(cuda, "while")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r.render_on(None, camera_state_from_pose(*HEAD), CameraEffects(), 10.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    assert 0 < syncs <= math.ceil(200 / RenderSettings().chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loop", ["while", "scan"])
+def test_dense_and_gathered_plain_march_bitwise_on_the_card(cuda, loop):
+    """On the card the dense media blocks give the gathered form's state
+    bit for bit (each element's math does not depend on its batch)."""
+    from relativisticraytracer_tpu_torch.render import march as rm
+    from relativisticraytracer_tpu_torch.render.camera import generate_rays
+
+    o, d, _, _ = generate_rays(96, 54, camera_state_from_pose(*HEAD), CameraEffects(), cuda)
+    t = pm._time_tensor(10.0, cuda)
+    scene = SceneConfig(max_steps=400)
+    a = rm.march(scene, o, d, t, 400, loop=loop, chunk=64, dense=False)
+    b = rm.march(scene, o, d, t, 400, loop=loop, chunk=64, dense=True)
+    assert (a.intensity.x > 0).any()
+    for x, y in zip(list(a.p) + list(a.v) + list(a.intensity)
+                    + [a.transmittance, a.hit_horizon, a.active],
+                    list(b.p) + list(b.v) + list(b.intensity)
+                    + [b.transmittance, b.hit_horizon, b.active]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_plain_march_graphs_reuse_their_memory(cuda):
+    """The march steps captured as CUDA graphs share one memory pool on the
+    device: frame after frame, torch's allocator holds no more memory."""
+    r = _plain_renderer(cuda, "while")
+    cam = camera_state_from_pose(*HEAD)
+    r.render(cam, CameraEffects(), 10.0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(cuda)
+    for _ in range(4):
+        r.render(cam, CameraEffects(), 10.0)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved(cuda) <= held
