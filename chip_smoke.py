@@ -10,7 +10,8 @@ script exits non-zero without the final result line:
   2. build: nvcc builds csrc/*.cu (record, replay, sky, march), one process
      per source started together, for sm_90a; each kernel's ptxas line
      (the fused march kernels in their four (has_spin, has_mass_pos)
-     instances), registers and resident warps an SM by the occupancy API,
+     instances), registers and resident warps an SM by the occupancy API
+     (the record, the fused march kernels and the replay's march pass),
      the march's launch geometry, and from `cuobjdump -sass` the march
      loop's instructions: those a vacuum step issues, its fp32 ones,
      branches and reads of the scene flags;
@@ -19,7 +20,10 @@ script exits non-zero without the final result line:
      three passes on that record (rtol 2e-6 / atol 5e-7; bitwise
      expected), forced step lists of 1 step (the per-ray kernel), a third
      of the steps (at least 3 rounds) and half (each bitwise the plain
-     replay; each round's ms and the per-ray kernel's), sky on random and
+     replay; each round's ms and the per-ray kernel's), the march pass's
+     segment order (the radix passes at the step cap and with it unknown)
+     bitwise its plain twin and the march kernel through it, each round's
+     step list bitwise its twins', sky on random and
      smooth directions with chromatic aberration on and off, with and
      without a mask, at n % 4 == 0 and != 0 (bitwise where unmasked), the
      three fused march kernels (march_sky, march_camera,
@@ -36,8 +40,9 @@ script exits non-zero without the final result line:
      times beside the plain versions', the frame against the plain path on
      the card (RMSE < 1e-3), launches of each kernel on the main path,
      replayed rays and peak memory, the replay's device-side bookkeeping
-     (replay_plan, its rounds kernel) and each replay pass's time in round
-     0 (march, shade disk, shade cloud, composite), the empty rounds' time,
+     (replay_plan, its rounds kernel, the march pass's segment order) and
+     each replay pass's time in round 0 (march, shade disk, shade cloud,
+     composite), the empty rounds' time,
      the replay stage (plan, every round, the per-ray kernel) beside the
      same with its plan cut to one round, the step list's capacity and
      size, the per-ray kernel's no-op launch; forced step lists of 1 step,
@@ -57,7 +62,11 @@ script exits non-zero without the final result line:
      on the three default paths, each second, at the cinema, native and
      realtime sizes (tools/replay_traffic.py: steps a pixel, the rounds
      each frame uses, the rays left to the per-ray kernel, the replay ms
-     against one list that holds every step, the two replays bitwise);
+     against one list that holds every step, the two replays bitwise), and
+     the replay's march pass alone at the headline and at the Horizon
+     Skimmer's t = 9 s frame (tools/replay_traffic.march_pass: each round's
+     ms, ps a step, the segment order's ms, lane efficiency beside the
+     per-ray mapping's, registers and resident warps an SM);
   6. the -fmad=false vs contracted-FMA build A/B on the headline frame
      (informational; a build or launch failure still fails the run);
   7. one headline frame and one inline headline frame under
@@ -194,8 +203,9 @@ KERNELS = {
     "record": (CSRC + "record.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:332",
                ("record_kernel",)),
     "replay": (CSRC + "replay.cu", "relativisticraytracer_tpu/ops/pallas_compact.py:560",
-               ("replay_rounds_kernel", "replay_march_kernel", "shade_disk_kernel",
-                "shade_cloud_kernel", "replay_composite_kernel")),
+               ("replay_rounds_kernel", "segment_hist_kernel", "segment_scatter_kernel",
+                "replay_march_kernel", "shade_disk_kernel", "shade_cloud_kernel",
+                "replay_composite_kernel")),
     # the same TPU kernel's exact fallback (its image-layout replay under
     # lax.cond, pallas_compact.py:735-744): the rays the rounds of the step
     # list do not take
@@ -714,7 +724,11 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
     from relativisticraytracer_tpu_torch.config import RenderSettings, SceneConfig
     from relativisticraytracer_tpu_torch.io import video as tvideo
     from relativisticraytracer_tpu_torch.io.image import decode_png
-    from relativisticraytracer_tpu_torch.ops.cuda_lib import BUILD_DIR, REPLAY_PASSES
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import (
+        BUILD_DIR,
+        REPLAY_PASSES,
+        SEGMENT_PASSES,
+    )
     from relativisticraytracer_tpu_torch.paths import default_paths, interpolate_path
     from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
     from relativisticraytracer_tpu_torch.render.pipeline import Renderer
@@ -776,7 +790,7 @@ def phase11_runtime(lib, dev, renderers, head_sky, thr, tmp):
             if host_syncs(prof):  # neither frame program waits for the device
                 raise AssertionError(f"{prog} job: {host_syncs(prof)} cudaStreamSynchronize")
             want = ({"march_sky", "sky"} if prog == "inline"
-                    else {"record", "sky"} | set(REPLAY_PASSES))
+                    else {"record", "sky"} | set(REPLAY_PASSES + SEGMENT_PASSES))
             if not want <= set(ran):
                 raise AssertionError(f"{prog} job did not run its kernels: {ran}")
         if files["compact"] != files["inline"]:
@@ -986,12 +1000,16 @@ def phase12_entry_points(lib, dev, tmp):
     from relativisticraytracer_tpu_torch import graft_entry
     from relativisticraytracer_tpu_torch.config import CameraEffects, RenderSettings, SceneConfig
     from relativisticraytracer_tpu_torch.io.image import decode_png
-    from relativisticraytracer_tpu_torch.ops.cuda_lib import BUILD_DIR, REPLAY_PASSES
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import (
+        BUILD_DIR,
+        REPLAY_PASSES,
+        SEGMENT_PASSES,
+    )
     from relativisticraytracer_tpu_torch.render.camera import camera_state_from_pose
     from relativisticraytracer_tpu_torch.render.pipeline import Renderer, render_frame
     from relativisticraytracer_tpu_torch.render.skybox import procedural_starfield
 
-    frame_kernels = ("record",) + REPLAY_PASSES + ("sky",)
+    frame_kernels = ("record",) + REPLAY_PASSES + SEGMENT_PASSES + ("sky",)
     fn, args = graft_entry.entry()
     fn(*args)  # warm-up
     torch.cuda.synchronize()
@@ -1312,7 +1330,7 @@ def main() -> None:
     )
     from relativisticraytracer_tpu_torch.core.vecmath import Vec3, normalize
     from relativisticraytracer_tpu_torch.ops import cuda_lib
-    from relativisticraytracer_tpu_torch.ops.cuda_lib import REPLAY_PASSES
+    from relativisticraytracer_tpu_torch.ops.cuda_lib import REPLAY_PASSES, SEGMENT_PASSES
     from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
     from relativisticraytracer_tpu_torch.ops import pallas_march as pm
     from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
@@ -1369,6 +1387,10 @@ def main() -> None:
         print(f"  occupancy {name}: {a['regs']} registers, {a['local_bytes']} B local a "
               f"thread; {a['blocks_per_sm']} blocks of {threads} threads an SM = "
               f"{a['blocks_per_sm'] * threads // 32} warps")
+    a = lib.replay_march_attrs(dev)
+    print(f"  occupancy replay_march: {a['regs']} registers, {a['local_bytes']} B local a "
+          f"thread, {a['shared_bytes']} B shared a block; {a['blocks_per_sm']} blocks of "
+          f"{a['threads']} threads an SM = {a['warps_per_sm']} warps")
     print(f"  march launch geometry: {cuda_lib.TILE_W}x{cuda_lib.TILE_H} pixel tiles, one warp "
           f"a block, expensive tiles first; tiles (= blocks): 1920x1080 "
           f"{cuda_lib.tile_count(1920, 1080)}, a 270x960 shard {cuda_lib.tile_count(960, 270)}, "
@@ -1424,7 +1446,7 @@ def main() -> None:
     # half; each bitwise the plain replay, with each round's ms
     errs["replay_overflow"] = 0.0
     for name, cap in (("one step", 1), ("a third", rsteps // 3), ("half", rsteps // 2)):
-        plan = pc.replay_plan(rk.total, cap, lib=lib)
+        plan = pc.with_segments(pc.replay_plan(rk.total, cap, lib=lib), rk.rec, steps, lib)
         fi, ft = pc._replay(scene, rk.rec, t, plan, lib)
         fgot = torch.stack([fi.x, fi.y, fi.z, ft]).reshape(4, -1)
         m, m_r = plan.counts[:2].tolist()
@@ -1439,6 +1461,42 @@ def main() -> None:
             raise AssertionError(f"replay at capacity {cap} is not bitwise the plain replay")
         if name == "a third" and len(used) < 3:
             raise AssertionError(f"a third of the steps ran {len(used)} rounds, not 3 or more")
+
+    # the march pass's segment order (radix passes on the card) against its
+    # plain twin at a third of the steps (at least 3 rounds), at the
+    # record's step cap (2 passes) and with the cap unknown (the list's
+    # capacity bounds a length: 3); and the march kernel through it, each
+    # round's step list bitwise its twins'
+    bare = pc.replay_plan(rk.total, rsteps // 3, lib=lib)
+    seg_same = []
+    for cap_steps in (steps, None):
+        got_s = pc.with_segments(bare, rk.rec, cap_steps, lib)
+        want_s = pc._segment_order_plain(rk.rec.cpu(), bare.order.cpu(), bare.offsets.cpu(),
+                                         bare.rounds.cpu(), pc.segment_len_bits(bare.capacity,
+                                                                               cap_steps))
+        n_seg = int(want_s[1].sum())
+        seg_same.append(bool(torch.equal(got_s.segment_counts.cpu(), want_s[1])
+                             and torch.equal(got_s.segments[:n_seg].cpu(), want_s[0][:n_seg])))
+    plan = pc.with_segments(bare, rk.rec, steps, lib)
+    consts3, stream3 = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
+    pos3, vel3, _ = pc.step_list(plan.capacity, dev)
+    march_same = []
+    for r, (first, rays, base, n_r) in enumerate(plan.rounds.tolist()):
+        if not rays:
+            continue
+        lib.replay_march(consts3, rk.rec, plan, r, pos3, vel3, stream3)
+        twin = pc._replay_march_segments_plain(scene, rk.rec, plan, r)
+        per_ray = pc._replay_march_plain(scene, rk.rec, plan.order[first:first + rays].long(),
+                                         plan.offsets[first:first + rays] - base, n_r)
+        march_same.append(all(torch.equal(pos3[:n_r], w[0]) and torch.equal(vel3[:n_r], w[1])
+                              for w in (twin, per_ray)))
+    del pos3, vel3
+    print(f"phase 3 replay march at capacity {bare.capacity} (a third): segments a round "
+          f"{plan.segment_counts.tolist()}; segment order bitwise its plain twin at the step cap "
+          f"and with it unknown {seg_same}; each round's step list bitwise the twin through "
+          f"the order and the per-ray twin {march_same}", flush=True)
+    if not (all(seg_same) and all(march_same) and len(march_same) >= 3):
+        raise AssertionError("the segment order or the march kernel is not bitwise its twin")
 
     head_sky = skybox_from_array(procedural_starfield(2048, 4096, device=dev), dev)
     rng = np.random.default_rng(7)
@@ -1552,8 +1610,8 @@ def main() -> None:
             raise AssertionError(f"golden {name}: RMSE {e} >= 1e-3")
         vacuum = not (r.scene.enable_disk or r.scene.enable_clouds)
         want = ["march_sky", "sky"] if vacuum else sorted(
-            ["record", "sky"] + [k for k in REPLAY_PASSES
-                                 if r.scene.enable_clouds or k != "replay_shade_cloud"])
+            ["record", "sky"] + list(SEGMENT_PASSES) + [
+                k for k in REPLAY_PASSES if r.scene.enable_clouds or k != "replay_shade_cloud"])
         if ran != want:
             raise AssertionError(f"golden {name} ran the wrong kernels: {ran}")
 
@@ -1579,7 +1637,7 @@ def main() -> None:
     lib.reset_launches()
     frame = renderer.render(hcam, eff, 1.0)
     torch.cuda.synchronize()
-    pass_launches = {k: lib.launches[k] for k in REPLAY_PASSES}
+    pass_launches = {k: lib.launches[k] for k in REPLAY_PASSES + SEGMENT_PASSES}
     launches = {"record": lib.launches["record"],
                 "replay": sum(v for k, v in pass_launches.items() if k != "replay_overflow"),
                 "replay_overflow": pass_launches["replay_overflow"], "sky": lib.launches["sky"]}
@@ -1599,7 +1657,8 @@ def main() -> None:
     horder, hsteps = pc.replay_list(rec.total)
     hcap = pc.step_capacity(hw * hh, scene.max_steps)
     hrounds = pc.replay_rounds(hw * hh, scene.max_steps, hcap)
-    hplan = pc.replay_plan(rec.total, hcap, rounds=hrounds, lib=lib)
+    hbare = pc.replay_plan(rec.total, hcap, rounds=hrounds, lib=lib)
+    hplan = pc.with_segments(hbare, rec.rec, scene.max_steps, lib)
     masked = rec.hit > 0.5
     inten, trans = pc._replay(scene, rec.rec, 1.0, hplan, lib)
     bg = ps.sky_background_windowed(head_sky, rec.idx, rec.fx, rec.fy, eff, masked,
@@ -1613,11 +1672,13 @@ def main() -> None:
                                                            rec.fy, eff, masked, lib=lib)),
     }
     plan_ms = event_ms(lambda: pc.replay_plan(rec.total, hcap, rounds=hrounds, lib=lib))
+    segments_ms = event_ms(lambda: pc.with_segments(hbare, rec.rec, scene.max_steps, lib))
     # the replay stage as the frame runs it (plan, every round, the per-ray
     # kernel), and with its plan cut to one round: the rounds this frame
     # leaves empty cost the difference
     stage_ms = {n_r: event_ms(lambda n_r=n_r: pc._replay(
-        scene, rec.rec, 1.0, pc.replay_plan(rec.total, hcap, rounds=n_r, lib=lib), lib))
+        scene, rec.rec, 1.0, pc.with_segments(pc.replay_plan(rec.total, hcap, rounds=n_r, lib=lib),
+                                              rec.rec, scene.max_steps, lib), lib))
         for n_r in (hrounds, 1)}
 
     # the replay's passes one by one (round 0, which holds every step), on
@@ -1651,6 +1712,8 @@ def main() -> None:
     if not (torch.equal(tbl, hplan.rounds) and torch.equal(cnt, hplan.counts)):
         raise AssertionError("the rounds kernel rebuilt another table")
     lengths = pc.step_lengths(rec.rec, horder)
+    seg_passes = -(-(pc.segment_len_bits(hcap, scene.max_steps) + (hrounds - 1).bit_length())
+                   // cuda_lib.RADIX_BITS)
     list_bytes = sum(t.numel() * 4 for t in (pos, vel, emit))
     seg = rec.rec[:, 6].reshape(pc.SLOTS, -1)
     seg = seg[seg > 0]
@@ -1703,7 +1766,8 @@ def main() -> None:
     del t_rel, t_r2, t_zd, t_zc, t_pd, t_pc
     forced = {}
     for name, cap in (("one step", 1), ("a third", hsteps // 3), ("half", hsteps // 2)):
-        plan = pc.replay_plan(rec.total, cap, lib=lib)
+        plan = pc.with_segments(pc.replay_plan(rec.total, cap, lib=lib), rec.rec, scene.max_steps,
+                                lib)
         fi, ft = pc._replay(scene, rec.rec, 1.0, plan, lib)
         fgot = torch.cat([torch.stack(list(fi)).reshape(3, -1), ft.reshape(1, -1)])
         same = bool(torch.equal(fgot, want_all) and torch.equal(fgot, unforced))
@@ -1772,7 +1836,9 @@ def main() -> None:
     for name in launches:
         print(f"  {name}: kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.1f} ms")
     print(f"  replay bookkeeping on the device (replay_plan: sort of {hw * hh} keys, offsets, "
-          f"the rounds kernel): {plan_ms:.3f} ms; replay kernels (CUDA events; the passes in "
+          f"the rounds kernel): {plan_ms:.3f} ms; the march pass's segment order "
+          f"(with_segments: {seg_passes} radix passes of hist + scatter) {segments_ms:.4f} ms; "
+          f"replay kernels (CUDA events; the passes in "
           f"round 0): " + ", ".join(f"{k} {v:.4f} ms" for k, v in pass_ms.items())
           + f"; the {hrounds - 1} empty rounds ({4 * (hrounds - 1)} launches) {empty_ms:.4f} ms; "
           f"replay stage (plan, {hrounds} rounds, per-ray kernel) {stage_ms[hrounds]:.4f} ms, "
@@ -1787,9 +1853,10 @@ def main() -> None:
         raise AssertionError(f"a kernel of the frame path never launched: {lib.launches}")
     if launches["replay_overflow"] != 1 or launches["sky"] != 1:
         raise AssertionError(f"the compact frame's per-frame kernels: {lib.launches}")
-    if pass_launches["replay_rounds"] != 1 or any(
-            pass_launches[k] != hrounds for k in ("replay_march", "replay_shade_disk",
-                                                  "replay_shade_cloud", "replay_composite")):
+    rounds_ran = [pass_launches[k] for k in ("replay_march", "replay_shade_disk",
+                                             "replay_shade_cloud", "replay_composite")]
+    if (pass_launches["replay_rounds"] != 1 or any(n != hrounds for n in rounds_ran)
+            or any(pass_launches[k] != seg_passes for k in SEGMENT_PASSES)):
         raise AssertionError(f"the compact frame's replay ran other than {hrounds} rounds: "
                              f"{pass_launches}")
 
@@ -1974,6 +2041,11 @@ def main() -> None:
           f"list's): {json.dumps(traffic_totals)}", flush=True)
     if not all(r["bitwise"] for r in traffic):
         raise AssertionError("a replay in rounds differs from one list's")
+    # the replay's march pass alone at the benchmark's two frames: the
+    # headline and the Skimmer's densest (t = 9 s)
+    march_pass = replay_traffic.march_frames(lib)
+    for name, row in march_pass.items():
+        print("phase 5 " + replay_traffic.march_line(name, row), flush=True)
 
     # ---- phase 6: FMA contraction A/B
     t0 = time.perf_counter()
@@ -1996,7 +2068,8 @@ def main() -> None:
     mesh = sharding.make_mesh([dev] * 8, (4, 2))
     ny_nx = mesh.devices.size
     for label, sset, whole_np, kernels in (
-        ("compact, interleave auto", settings, frame_np, ("record",) + REPLAY_PASSES + ("sky",)),
+        ("compact, interleave auto", settings, frame_np,
+         ("record",) + REPLAY_PASSES + SEGMENT_PASSES + ("sky",)),
         ("inline", inline_settings, inline_np, ("march_planes", "sky")),
     ):
         fn = sharding.make_sharded_renderer(scene, sset, mesh)
@@ -2213,8 +2286,9 @@ def main() -> None:
     rows["replay"].update(round0_passes_ms=sum(v for k, v in pass_ms.items()
                                                if k not in ("replay_rounds", "replay_overflow")),
                           rounds_kernel_ms=pass_ms["replay_rounds"], empty_rounds_ms=empty_ms,
-                          rounds=hrounds, plan_ms=plan_ms, stage_ms=stage_ms[hrounds],
-                          stage_one_round_ms=stage_ms[1])
+                          rounds=hrounds, plan_ms=plan_ms, segments_ms=segments_ms,
+                          stage_ms=stage_ms[hrounds], stage_one_round_ms=stage_ms[1],
+                          march_pass=march_pass)
     rows["replay_overflow"]["main_path_ms"] = pass_ms["replay_overflow"]
     rows["replay_overflow"]["forced"] = forced
     rows["replay_overflow"].update(half_tail_ms=half_tail, half_tail_floor_ms=tail_floor)

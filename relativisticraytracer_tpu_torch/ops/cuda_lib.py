@@ -323,6 +323,13 @@ def order_from_keys(keys: torch.Tensor) -> torch.Tensor:
 # under its own name.
 REPLAY_PASSES = ("replay_rounds", "replay_march", "replay_shade_disk", "replay_shade_cloud",
                  "replay_composite", "replay_overflow")
+# The march pass's segment order (KernelLibrary.replay_segments): a sort of
+# the rounds' segments in passes of RADIX_BITS, two launches a pass.
+SEGMENT_PASSES = ("replay_segments_hist", "replay_segments_scatter")
+# replay.cu's SEG_TILE, RADIX_BITS and MAX_ROUNDS
+SEGMENT_TILE = 2048
+RADIX_BITS = 8
+MAX_ROUNDS = 64
 # Waves of resident blocks a replay grid holds at most: round 0's passes and
 # the per-ray kernel, then the later rounds' passes. Measured on an H100
 # over the default paths' frames (tools/replay_traffic.py): one wave leaves
@@ -339,7 +346,8 @@ ROUND_WAVES = 1
 # tools/sky_primitives.py's block-resident gather.
 PROBES = ("chain", "take_along")
 CHAIN_OPS = ("fma", "mul", "mul_bf16", "rsqrt", "exp")
-KERNELS = (("record",) + REPLAY_PASSES + ("sky", "march_sky", "march_camera", "march_planes")
+KERNELS = (("record",) + REPLAY_PASSES + SEGMENT_PASSES
+           + ("sky", "march_sky", "march_camera", "march_planes")
            + PROBES)
 
 
@@ -420,7 +428,10 @@ class KernelLibrary:
             "ray_grid_size": [],
             "record": [sc, cam, ctypes.POINTER(RayGrid)] + [ci] * 6 + [vp] * 7,
             "replay_rounds": [vp, vp, cl, ci, vp, vp, vp],
-            "replay_march": [sc, ci, cl, ci, ci] + [vp] * 7,
+            "replay_segments_hist": [vp] * 4 + [ci] * 6 + [vp] * 6,
+            "replay_segments_scatter": [vp] * 4 + [ci] * 6 + [vp] * 8,
+            "replay_march": [sc, ci, cl, ci, ci, ci] + [vp] * 6,
+            "replay_march_attrs": [vp],
             "replay_shade": [sc, cf, ci, cl, ci] + [vp] * 5,
             "replay_composite": [ci, cl, ci] + [vp] * 7,
             "replay_overflow": [sc, cf, ci, cl, ci, ci, ci] + [vp] * 7,
@@ -488,20 +499,75 @@ class KernelLibrary:
                                               table.data_ptr(), counts.data_ptr(), stream)
         self._launched("replay_rounds", err)
 
-    def replay_march(self, consts, rec, plan, r, pos, vel, stream) -> None:
-        """Pass 1 of round `r` of `plan` (ops/pallas_compact.ReplayPlan):
-        each recorded segment of the round's rays -> its steps' PRE-step rel
-        and POST-step v, `pos` [C, 4] (rel, v.x) and `vel` [C, 2] (v.y,
-        v.z), from its ray's offset less the round's base on."""
+    def replay_segments(self, rec, order, offsets, table, len_bits, stream):
+        """The march pass's segment order (ops/pallas_compact.with_segments):
+        from the records `rec` [slots, 7, H, W], the plan's `order` (int32
+        [L]), `offsets` (int64 [L]) and round table `table` (int64 [R, 4])
+        on the card, the rounds' non-empty (listed ray, slot) segments
+        sorted by (round, longest first), ties in (ray, slot) order, as
+        int32 [L * slots, 2] (list start less the round's base, pixel *
+        slots + slot), and int64 [R] segments a round. Lengths take
+        `len_bits` bits of the key. No host sync: each pass reads its
+        count from the last one's prefix sum; entries past the count stay
+        unwritten."""
         slots, _, h, w = rec.shape
-        rays, cap = plan.order.numel(), pos.shape[0]
-        check("replay_march", [(rec, torch.float32, (slots, 7, h, w))] + _plan_specs(plan)
-              + [(pos, torch.float32, (cap, 4)), (vel, torch.float32, (cap, 2))])
+        rays, rounds = order.numel(), table.shape[0]
+        check("replay_segments", [(rec, torch.float32, (slots, 7, h, w)),
+                                  (order, torch.int32, (rays,)), (offsets, torch.int64, (rays,)),
+                                  (table, torch.int64, (rounds, 4))])
+        if not 1 <= rounds <= MAX_ROUNDS:
+            raise ValueError(f"replay_segments: {rounds} rounds (1 to {MAX_ROUNDS})")
+        items = rays * slots
+        if items >= 1 << 31 or not 1 <= len_bits <= 24:
+            raise ValueError(f"replay_segments: {items} items, {len_bits} length bits")
+        dev = rec.device
+        tiles = max(-(-items // SEGMENT_TILE), 1)
+        passes = max(-(-(len_bits + (rounds - 1).bit_length()) // RADIX_BITS), 1)
+        keys = [torch.empty(items, dtype=torch.int32, device=dev) for _ in range(2)]
+        vals = [torch.empty((items, 2), dtype=torch.int32, device=dev) for _ in range(2)]
+        hist = torch.empty((1 << RADIX_BITS) * tiles, dtype=torch.int32, device=dev)
+        counts = torch.zeros(rounds, dtype=torch.int64, device=dev)
+        plan_args = (rec.data_ptr(), order.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+                     rounds, h * w, slots, len_bits)
+        scans, count = [], None
+        with torch.cuda.device(dev):
+            for p in range(passes):
+                src, dst = (p + 1) % 2, p % 2
+                k_in, v_in = (keys[src].data_ptr(), vals[src].data_ptr()) if p else (None, None)
+                err = self._lib.rrt_replay_segments_hist(
+                    *plan_args, p, tiles, k_in, v_in, count, hist.data_ptr(), counts.data_ptr(),
+                    stream)
+                self._launched("replay_segments_hist", err)
+                # the next pass reads its count from this scan: keep each alive
+                scans.append(torch.cumsum(hist, 0, dtype=torch.int32))
+                err = self._lib.rrt_replay_segments_scatter(
+                    *plan_args, p, tiles, k_in, v_in, count, hist.data_ptr(),
+                    scans[-1].data_ptr(), keys[dst].data_ptr() if p + 1 < passes else None,
+                    vals[dst].data_ptr(), stream)
+                self._launched("replay_segments_scatter", err)
+                count = scans[-1].data_ptr() + (scans[-1].numel() - 1) * scans[-1].element_size()
+        return vals[(passes - 1) % 2], counts
+
+    def replay_march(self, consts, rec, plan, r, pos, vel, stream) -> None:
+        """Pass 1 of round `r` of `plan` (ops/pallas_compact.ReplayPlan,
+        with its segment order): each of the round's segments, longest
+        first, -> its steps' PRE-step rel and POST-step v, `pos` [C, 4]
+        (rel, v.x) and `vel` [C, 2] (v.y, v.z), from its list start on."""
+        slots, _, h, w = rec.shape
+        rays, cap, rounds = plan.order.numel(), pos.shape[0], plan.rounds.shape[0]
+        if plan.segments is None:
+            raise ValueError("replay_march: the plan has no segment order (with_segments)")
+        if not 0 <= r < rounds:
+            raise ValueError(f"round {r} of a {rounds}-round plan")
+        check("replay_march", [(rec, torch.float32, (slots, 7, h, w)),
+                               (plan.segments, torch.int32, (rays * slots, 2)),
+                               (plan.segment_counts, torch.int64, (rounds,)),
+                               (pos, torch.float32, (cap, 4)), (vel, torch.float32, (cap, 2))])
         with torch.cuda.device(rec.device):
             err = self._lib.rrt_replay_march(
-                ctypes.byref(consts), h * w, min(rays, cap), slots, _waves(r), _row(plan, r),
-                rec.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(), pos.data_ptr(),
-                vel.data_ptr(), stream)
+                ctypes.byref(consts), h * w, min(rays, cap) * slots, slots, _waves(r), r,
+                plan.segment_counts.data_ptr(), rec.data_ptr(), plan.segments.data_ptr(),
+                pos.data_ptr(), vel.data_ptr(), stream)
         self._launched("replay_march", err)
 
     def replay_shade(self, consts, time, medium, plan, r, pos, vel, emit, stream) -> None:
@@ -695,6 +761,18 @@ class KernelLibrary:
         if err != 0:
             raise RuntimeError(f"CUDA error {err} querying the {name} kernel")
         return dict(regs=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+
+    def replay_march_attrs(self, device) -> Dict[str, int]:
+        """The replay march pass's registers and local (spill) bytes a
+        thread, resident blocks and warps an SM, threads a block and static
+        shared bytes a block on `device` (the CUDA occupancy API)."""
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            err = self._lib.rrt_replay_march_attrs(out)
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err} querying the replay_march kernel")
+        return dict(regs=out[0], local_bytes=out[1], blocks_per_sm=out[2], threads=out[3],
+                    shared_bytes=out[4], warps_per_sm=out[2] * out[3] // 32)
 
     def set_timeline(self, buf: torch.Tensor) -> None:
         """Timeline build only: the fused march kernels write each warp's

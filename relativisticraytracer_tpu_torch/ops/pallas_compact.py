@@ -18,8 +18,8 @@ emission and zero opacity wherever they are False. So the march splits:
   B) the REPLAY pass (`media_replay`): each ray re-integrates only its
      recorded segments, back to back, and shades them. On the card it runs
      as three passes over a step list in device memory (csrc/replay.cu):
-     march (one thread per recorded segment: each step's pre-step rel and
-     post-step v), shade (one thread per step: disk, then cloud, the last
+     march (one thread per recorded segment, in the plan's segment order,
+     longest first: each step's pre-step rel and post-step v), shade (one thread per step: disk, then cloud, the last
      one also the step's transmittance) and composite (one thread per ray,
      its steps in order). A ray's offset is the exclusive prefix sum of
      the listed rays' lengths (`step_offsets`). The list is allocated at a
@@ -362,6 +362,13 @@ class ReplayPlan(NamedTuple):
     # rays, its base (the first ray's offset) and its steps
     rounds: torch.Tensor
     capacity: int          # entries of the step list
+    # The march pass's segment order (`with_segments`): int32
+    # [L * slots, 2], each round's non-empty (listed ray, slot) segments,
+    # longest first, ties in (ray, slot) order, round after round, as (list
+    # start less the round's base, pixel * slots + slot); entries past the
+    # rounds' segments are unwritten. segment_counts: int64 [R] a round's.
+    segments: Optional[torch.Tensor] = None
+    segment_counts: Optional[torch.Tensor] = None
 
 
 def step_capacity(pixels: int, max_steps: Optional[int] = None) -> int:
@@ -401,7 +408,8 @@ def replay_plan(total: torch.Tensor, capacity: int, order: Optional[torch.Tensor
     longer than the list are a prefix of it (longest first); from there
     `rounds` rounds each take the next rays whose steps fit `capacity`
     (`_replay_rounds_plain`; on the card csrc/replay.cu's rounds kernel,
-    `lib` as in `media_replay`)."""
+    `lib` as in `media_replay`). `with_segments` adds the march pass's
+    segment order."""
     flat = total.reshape(-1)
     lengths = flat.to(torch.int64)  # integers below 2^24: exact
     if order is None:
@@ -426,6 +434,67 @@ def replay_plan(total: torch.Tensor, capacity: int, order: Optional[torch.Tensor
     else:
         table, counts = _replay_rounds_plain(csum, listed, capacity, rounds)
     return ReplayPlan(order.to(torch.int32), csum[:-1], counts, table, capacity)
+
+
+def segment_len_bits(capacity: int, max_steps: Optional[int]) -> int:
+    """Bits of a segment's length in the segment order's key: a segment of
+    a round is at most its ray's steps, so at most the list's capacity, the
+    record's step cap and 2^24 - 1."""
+    longest = min(capacity, _LEN_LIMIT - 1, _LEN_LIMIT if max_steps is None else max_steps)
+    return max(longest, 1).bit_length()
+
+
+def with_segments(plan: ReplayPlan, rec: torch.Tensor, max_steps: Optional[int] = None,
+                  lib=None) -> ReplayPlan:
+    """`plan` with the march pass's segment order (ReplayPlan.segments and
+    segment_counts) of the records `rec` it was built from: the rounds'
+    non-empty segments sorted by (round, longest first), ties in (listed
+    ray, slot) order, each as (its list start less the round's base, pixel
+    * slots + slot). `max_steps`: the record's step cap (None: unknown),
+    which bounds a segment's length. On the card csrc/replay.cu's segment
+    kernels (a stable radix sort that reads its counts on the device: no
+    host sync); on the CPU `_segment_order_plain`."""
+    slots = rec.shape[0]
+    if rec.dim() != 4 or rec.shape[1] != 7:
+        raise ValueError(f"records must be [slots, 7, H, W], got {tuple(rec.shape)}")
+    if plan.capacity >= 1 << 31 or plan.order.numel() * slots >= 1 << 31:
+        raise ValueError("the segment order holds list starts and pixel * slots in int32")
+    bits = segment_len_bits(plan.capacity, max_steps)
+    if rec.device.type == "cuda":
+        segments, counts = cuda_lib.resolve(lib).replay_segments(
+            rec, plan.order, plan.offsets, plan.rounds, bits, cuda_lib.current_stream(rec.device))
+    else:
+        segments, counts = _segment_order_plain(rec, plan.order, plan.offsets, plan.rounds, bits)
+    return plan._replace(segments=segments, segment_counts=counts)
+
+
+def _segment_order_plain(rec: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
+                         table: torch.Tensor, len_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of csrc/replay.cu's segment kernels: (segments int32
+    [L * slots, 2], counts int64 [R]), the entries past the rounds'
+    segments -1. The segments of the rays in rounds ([round 0's first ray,
+    the last round's end) along the list) sorted by the unique key (round,
+    2^len_bits - 1 - length saturated at 0, ray, slot)."""
+    slots = rec.shape[0]
+    rows = table.tolist()
+    lo, hi = rows[0][0], rows[-1][0] + rows[-1][1]
+    pix = order[lo:hi].long()
+    lens = rec[:, 6].reshape(slots, -1)[:, pix].to(torch.int64).T  # [rays, slots]
+    ends = torch.tensor([r[0] + r[1] for r in rows], dtype=torch.int64)
+    bases = torch.tensor([r[2] for r in rows], dtype=torch.int64)
+    k = torch.searchsorted(ends, torch.arange(lo, hi), right=True)  # each ray's round
+    start = (offsets[lo:hi] - bases[k])[:, None] + torch.cumsum(lens, 1) - lens
+    field = torch.clamp((1 << len_bits) - 1 - lens, min=0)
+    items = lens.numel()
+    key = (((k[:, None] << len_bits) | field) * items
+           + torch.arange(items, dtype=torch.int64).reshape(lens.shape))
+    seg = lens > 0
+    perm = torch.argsort(key[seg])
+    packed = pix[:, None] * slots + torch.arange(slots)
+    out = torch.full((order.numel() * slots, 2), -1, dtype=torch.int32)
+    out[:perm.numel()] = torch.stack([start[seg], packed[seg]], 1)[perm].to(torch.int32)
+    counts = torch.bincount(k[:, None].expand(lens.shape)[seg], minlength=len(rows))
+    return out, counts.to(torch.int64)
 
 
 def _replay_rounds_plain(csum: torch.Tensor, listed: torch.Tensor, capacity: int,
@@ -530,30 +599,60 @@ def _replay_march_plain(scene: SceneConfig, rec: torch.Tensor, sel: torch.Tensor
     NaN, so a ray whose bookkeeping reads one shows it."""
     slots = rec.shape[0]
     flat = rec.reshape(slots, 7, -1)
-    pos = torch.full((n_steps, 4), float("nan"), dtype=torch.float32, device=rec.device)
-    vel = torch.full((n_steps, 2), float("nan"), dtype=torch.float32, device=rec.device)
+    pos, vel = _nan_list(n_steps, rec.device)
     start = offsets.clone()
     for s in range(slots):
-        live = torch.nonzero(flat[s, 6, sel] > 0.0).squeeze(1)
-        if live.numel() == 0:
-            break  # slots fill in order: no ray has a later one
-        src = flat[s][:, sel[live]]
-        p, v = Vec3(src[0], src[1], src[2]), Vec3(src[3], src[4], src[5])
-        left, at = src[6], start[live]
-        start[live] += left.to(torch.int64)
-        while left.numel():
-            rel = _recenter(scene, p)
-            r2 = rel.x * rel.x + rel.y * rel.y + rel.z * rel.z
-            zd, zc = media_zones(scene, rel, r2)
-            h = adaptive_h(scene, r2, zd, zc, torch.ones_like(zd))
-            p, v = rk4_step(scene, p, v, h)
-            pos[at] = torch.stack([rel.x, rel.y, rel.z, v.x], dim=1)
-            vel[at] = torch.stack([v.y, v.z], dim=1)
-            at, left = at + 1, left - 1.0
-            keep = torch.nonzero(left > 0.0).squeeze(1)
-            at, left = at[keep], left[keep]
-            p, v = (a.map(lambda c: c[keep]) for a in (p, v))
+        src = flat[s][:, sel]
+        _march_segments(scene, src, start, pos, vel)
+        start = start + src[6].to(torch.int64)
     return pos, vel
+
+
+def _replay_march_segments_plain(scene: SceneConfig, rec: torch.Tensor, plan: ReplayPlan,
+                                 r: int):
+    """Plain twin of csrc/replay.cu::replay_march_kernel: (pos, vel) of
+    round `r`'s step list (the round's steps; entries no segment writes stay
+    NaN), each of the round's segments in the plan's segment order marched
+    from its list start."""
+    slots, n = rec.shape[0], rec.shape[2] * rec.shape[3]
+    counts = plan.segment_counts.tolist()
+    first = sum(counts[:r])
+    seg = plan.segments[first:first + counts[r]].long()
+    pos, vel = _nan_list(plan.rounds[r, 3].item(), rec.device)
+    src = rec.reshape(slots, 7, n)[seg[:, 1] % slots, :, seg[:, 1] // slots].T  # [7, segments]
+    _march_segments(scene, src, seg[:, 0], pos, vel)
+    return pos, vel
+
+
+def _nan_list(n_steps: int, device):
+    """(pos [S, 4], vel [S, 2]) of NaN: a step list no segment wrote yet."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.full((n_steps, 4), float("nan"), **f32),
+            torch.full((n_steps, 2), float("nan"), **f32))
+
+
+def _march_segments(scene: SceneConfig, src: torch.Tensor, at: torch.Tensor, pos: torch.Tensor,
+                    vel: torch.Tensor) -> None:
+    """March segments of recorded state `src` [7, k] (PRE-step p, v and the
+    length) from list entries `at` [k] on, each step by step while it has
+    steps left (an empty one marches nothing), writing each step's PRE-step
+    rel and POST-step v to `pos` and `vel`."""
+    p, v = Vec3(src[0], src[1], src[2]), Vec3(src[3], src[4], src[5])
+    left = src[6]
+    while True:
+        keep = torch.nonzero(left > 0.0).squeeze(1)
+        if not keep.numel():
+            return
+        at, left = at[keep], left[keep]
+        p, v = (a.map(lambda c: c[keep]) for a in (p, v))
+        rel = _recenter(scene, p)
+        r2 = rel.x * rel.x + rel.y * rel.y + rel.z * rel.z
+        zd, zc = media_zones(scene, rel, r2)
+        h = adaptive_h(scene, r2, zd, zc, torch.ones_like(zd))
+        p, v = rk4_step(scene, p, v, h)
+        pos[at] = torch.stack([rel.x, rel.y, rel.z, v.x], dim=1)
+        vel[at] = torch.stack([v.y, v.z], dim=1)
+        at, left = at + 1, left - 1.0
 
 
 def _replay_shade_plain(scene: SceneConfig, pos: torch.Tensor, vel: torch.Tensor,
@@ -626,7 +725,7 @@ def media_replay(
     total = rec[:, 6].sum(0)  # integers below 2^24: exact in any order
     cap = step_capacity(n, max_steps) if capacity is None else capacity
     plan = replay_plan(total, cap, order, replay_rounds(n, max_steps, cap), lib)
-    return _replay(scene, rec, time, plan, lib)
+    return _replay(scene, rec, time, with_segments(plan, rec, max_steps, lib), lib)
 
 
 def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
@@ -637,6 +736,8 @@ def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
     kernel's twin) for the rest."""
     _, _, h, w = rec.shape
     device = rec.device
+    if plan.segments is None:
+        raise ValueError("the replay plan has no segment order (with_segments)")
     if device.type == "cuda":
         inten, trans = _replay_cuda(scene, rec, time, plan, lib)
     elif device.type == "cpu":
@@ -649,10 +750,12 @@ def _replay(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan,
 
 def _replay_split_plain(scene: SceneConfig, rec: torch.Tensor, time, plan: ReplayPlan):
     """The kernels' split on CPU tensors: (I [3, N], T [N]). Each round of
-    `plan.rounds` runs its rays through the three passes' twins over a step
-    list of its steps (at most the capacity), each ray at its offset less
-    the round's base; the rays before round 0 (longer than the list) and
-    past the last round run through `_replay_plain`.
+    `plan.rounds` runs the three passes' twins over a step list of its
+    steps (at most the capacity): the march over the round's segments in
+    the plan's segment order, each from its list start, then shade and
+    composite over its rays, each at its offset less the round's base; the
+    rays before round 0 (longer than the list) and past the last round run
+    through `_replay_plain`.
 
     The shade twin takes the list's steps in pixel order, each ray's steps
     in turn: torch's CPU transcendentals round an element by its place in
@@ -663,13 +766,13 @@ def _replay_split_plain(scene: SceneConfig, rec: torch.Tensor, time, plan: Repla
     inten = torch.zeros((3, n), dtype=torch.float32)
     trans = torch.ones(n, dtype=torch.float32)
     table = plan.rounds.tolist()
-    for first, rays, base, steps in table:
+    for r, (first, rays, base, steps) in enumerate(table):
         if not rays:
             continue
         if steps > plan.capacity:
             raise AssertionError(f"{steps} steps in a step list of {plan.capacity}")
         fit, offsets = order[first:first + rays], plan.offsets[first:first + rays] - base
-        pos, vel = _replay_march_plain(scene, rec, fit, offsets, steps)
+        pos, vel = _replay_march_segments_plain(scene, rec, plan, r)
         if bool(pos.isnan().any()):
             raise AssertionError("the replay's offsets left step-list entries unwritten")
         lengths = torch.diff(offsets, append=offsets.new_tensor([steps]))
@@ -696,7 +799,7 @@ def media_replay_sorted(scene: SceneConfig, record: Record, time, lib=None,
     n = record.total.numel()
     cap = step_capacity(n, max_steps) if capacity is None else capacity
     plan = replay_plan(record.total, cap, rounds=replay_rounds(n, max_steps, cap), lib=lib)
-    return _replay(scene, record.rec, time, plan, lib)
+    return _replay(scene, record.rec, time, with_segments(plan, record.rec, max_steps, lib), lib)
 
 
 # --------------------------------------------------------------------------

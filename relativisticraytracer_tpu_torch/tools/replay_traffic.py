@@ -18,6 +18,15 @@ beforehand) at that capacity and at one that holds every step in one round
 past them shows per frame, and holds the two replays' (I, T) bitwise equal.
 The report goes to chiprun_out/replay_traffic.json; `summary` condenses it
 to one line per path and size.
+
+`march_pass` reads the replay's march pass alone on one frame, and the
+report holds it for the headline still and for the Horizon Skimmer's
+densest 1080p frame (t = 9 s; `MARCH_FRAMES`): each round's launch ms by
+CUDA events, their sum and ps a step, the segment order's ms
+(`with_segments`), the lane efficiency of the segment order (useful
+lane-steps over 32 x each warp's longest segment) beside that of the
+per-ray mapping it replaced (thread t: slot t / m of the round's ray
+t % m), and the kernel's registers and resident warps an SM.
 """
 
 from __future__ import annotations
@@ -42,6 +51,13 @@ SIZES = (("cinema", 1920, 1080), ("native", 1000, 700), ("realtime", 480, 272))
 # The record's sky addressing only: the replay does not depend on it.
 SKY_SHAPE = (1024, 2048)
 OUT = pathlib.Path(__file__).resolve().parents[2] / "chiprun_out"
+# The frames `march_pass` reads: (name, path index or None for the
+# headline pose, time); the benchmark's two cells
+MARCH_FRAMES = (("headline", None, 1.0), ("Horizon Skimmer t 9", 2, 9.0))
+HEADLINE_POSE = ((0.0, 10.0, -60.0), 0.0, -10.0)
+# A sleep kernel's cycles (~10 ms on an H100) that hold the stream while
+# the host enqueues the timed calls
+HOLD_CYCLES = 20_000_000
 
 
 def frame_traffic(scene: SceneConfig, settings: RenderSettings, time: float, pose,
@@ -59,14 +75,16 @@ def frame_traffic(scene: SceneConfig, settings: RenderSettings, time: float, pos
         *SKY_SHAPE, slots=settings.media_slots, device=device, lib=lib)
     cap = pc.step_capacity(w * h, max_steps)
     rounds = pc.replay_rounds(w * h, max_steps, cap)
-    plan = pc.replay_plan(record.total, cap, rounds=rounds, lib=lib)
+    plan = pc.with_segments(pc.replay_plan(record.total, cap, rounds=rounds, lib=lib),
+                            record.rec, max_steps, lib)
     m, m_r, s, s_r = plan.counts.tolist()
     row = dict(width=w, height=h, max_steps=max_steps, pixels=w * h, rays=m, steps=s,
                density=s / (w * h), capacity=cap, rounds=rounds,
                rounds_used=int((plan.rounds[:, 1] > 0).sum()), rays_past=m - m_r,
                steps_past=s - s_r)
     if timed:
-        fit = pc.replay_plan(record.total, max(s, 1), rounds=1, lib=lib)
+        fit = pc.with_segments(pc.replay_plan(record.total, max(s, 1), rounds=1, lib=lib),
+                               record.rec, max_steps, lib)
         got, row["replay_ms"] = _replay_ms(scene, record, time, plan, lib)
         want, row["replay_fit_ms"] = _replay_ms(scene, record, time, fit, lib)
         # the rays past the list replay to the same bits as in the list
@@ -93,6 +111,139 @@ def _replay_ms(scene, record, time, plan, lib):
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return out, best
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Mean device ms of `fn` by CUDA events after one warm call, the
+    stream held by a sleep kernel while the host enqueues."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def issued_lane_steps(lengths: torch.Tensor) -> int:
+    """Lane-steps issued for threads with these segment lengths in launch
+    order, 32 consecutive threads a warp, each warp running for its
+    longest segment."""
+    pad = torch.zeros(-(-lengths.numel() // 32) * 32, dtype=torch.int64, device=lengths.device)
+    pad[:lengths.numel()] = lengths
+    return 32 * int(pad.reshape(-1, 32).amax(1).sum())
+
+
+def per_ray_order(rec: torch.Tensor, plan: pc.ReplayPlan) -> pc.ReplayPlan:
+    """`plan` with the per-ray mapping in place of its segment order: round
+    r's entries are its rays' slots, slot-major (entry t: slot t / m of
+    the round's ray t % m), the empty ones included (they march nothing)."""
+    slots = rec.shape[0]
+    lens = rec[:, 6].reshape(slots, -1).to(torch.int64)
+    entries, counts = [], []
+    for first, rays, base, _ in plan.rounds.tolist():
+        pix = plan.order[first:first + rays].long()
+        n = lens[:, pix]  # [slots, rays]
+        start = plan.offsets[first:first + rays] - base + torch.cumsum(n, 0) - n
+        packed = pix * slots + torch.arange(slots, device=pix.device)[:, None]
+        entries.append(torch.stack([start.reshape(-1), packed.reshape(-1)], 1))
+        counts.append(rays * slots)
+    segments = torch.full_like(plan.segments, -1)
+    flat = torch.cat(entries)
+    segments[:flat.shape[0]] = flat.to(torch.int32)
+    return plan._replace(segments=segments, segment_counts=torch.tensor(
+        counts, dtype=torch.int64, device=segments.device))
+
+
+def segment_lengths(rec: torch.Tensor, plan: pc.ReplayPlan) -> List[torch.Tensor]:
+    """Each round's segment lengths in the order the march pass takes them
+    (the plan's segment order)."""
+    slots = rec.shape[0]
+    lens = rec[:, 6].reshape(slots, -1).to(torch.int64)
+    out, at = [], 0
+    for count in plan.segment_counts.tolist():
+        seg = plan.segments[at:at + count].long()
+        at += count
+        out.append(lens[seg[:, 1] % slots, seg[:, 1] // slots])
+    return out
+
+
+def march_lanes(rec: torch.Tensor, plan: pc.ReplayPlan) -> Dict:
+    """The march pass's lane efficiency over the plan's rounds (useful
+    lane-steps over issued): of its segment order, and of the per-ray
+    mapping it replaced (`per_ray_order`); the segments, the longest and
+    the median length."""
+    new = segment_lengths(rec, plan)
+    old = segment_lengths(rec, per_ray_order(rec, plan))
+    useful = sum(int(x.sum()) for x in new)
+    segs = torch.cat(new)
+    return dict(lane_efficiency=useful / max(sum(map(issued_lane_steps, new)), 1),
+                lane_efficiency_per_ray=useful / max(sum(map(issued_lane_steps, old)), 1),
+                segments=segs.numel(), longest_segment=int(segs.max()) if segs.numel() else 0,
+                median_segment=float(segs.float().median()) if segs.numel() else 0.0)
+
+
+def march_pass(scene: SceneConfig, settings: RenderSettings, time: float, pose, lib=None,
+               reps: int = 3) -> Dict:
+    """The replay's march pass on one frame at `pose` and `time` on the
+    card: the record, the plan at the frame's capacity with its segment
+    order, then each round's march launch (`reps` timed calls, CUDA
+    events): round ms, their sum (`march_ms`), steps and ps a step, the
+    segment order's ms, `march_lanes`, and the kernel's registers, shared
+    bytes and resident warps an SM."""
+    lib = cuda_lib.resolve(lib)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    w, h = settings.width * settings.supersample, settings.height * settings.supersample
+    max_steps = settings.resolved_max_steps(scene)
+    record = pc.march_pallas_camera_sky_record(
+        scene, camera_state_from_pose(*pose), CameraEffects(), time, w, h, max_steps,
+        *SKY_SHAPE, slots=settings.media_slots, device=dev, lib=lib)
+    cap = pc.step_capacity(w * h, max_steps)
+    plan = pc.replay_plan(record.total, cap, rounds=pc.replay_rounds(w * h, max_steps, cap),
+                          lib=lib)
+    segments_ms = _event_ms(lambda: pc.with_segments(plan, record.rec, max_steps, lib), reps)
+    plan = pc.with_segments(plan, record.rec, max_steps, lib)
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(dev)
+    pos, vel, _ = pc.step_list(plan.capacity, dev)
+    rows = plan.rounds.tolist()
+    round_ms = [_event_ms(lambda r=r: lib.replay_march(consts, record.rec, plan, r, pos, vel,
+                                                       stream), reps)
+                for r in range(len(rows)) if rows[r][1]]
+    steps = sum(r[3] for r in rows)
+    out = dict(width=w, height=h, time=time, steps=steps, rounds_used=len(round_ms),
+               round_ms=round_ms, march_ms=sum(round_ms),
+               ps_per_step=sum(round_ms) * 1e9 / steps if steps else 0.0,
+               segments_ms=segments_ms, **march_lanes(record.rec, plan),
+               **lib.replay_march_attrs(dev))
+    del pos, vel
+    torch.cuda.empty_cache()
+    return out
+
+
+def march_frames(lib=None, reps: int = 3) -> Dict[str, Dict]:
+    """`march_pass` at 1920x1080 and the default scene and settings for
+    each of MARCH_FRAMES."""
+    paths, out = default_paths(), {}
+    for name, path, t in MARCH_FRAMES:
+        pose = HEADLINE_POSE if path is None else interpolate_path(paths[path], t)
+        out[name] = march_pass(SceneConfig(), RenderSettings(width=1920, height=1080), t, pose,
+                               lib, reps)
+    return out
+
+
+def march_line(name: str, row: Dict) -> str:
+    """One report line of a `march_pass` row."""
+    return (f"march pass, {name} {row['width']}x{row['height']} t {row['time']:g}: "
+            f"{row['march_ms']:.4f} ms over {row['rounds_used']} rounds "
+            f"{[round(x, 4) for x in row['round_ms']]}, {row['steps']} steps, "
+            f"{row['ps_per_step']:.2f} ps a step; segment order {row['segments_ms']:.4f} ms; "
+            f"lane efficiency {row['lane_efficiency']:.4f} (the per-ray mapping "
+            f"{row['lane_efficiency_per_ray']:.4f}); {row['segments']} segments, longest "
+            f"{row['longest_segment']}, median {row['median_segment']:g}; {row['regs']} "
+            f"registers, {row['local_bytes']} B local, {row['shared_bytes']} B shared a block of "
+            f"{row['threads']}, {row['blocks_per_sm']} blocks = {row['warps_per_sm']} warps an SM")
 
 
 def path_times(duration: float, every: float) -> List[float]:
@@ -180,12 +331,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("replay_traffic: no CUDA device")
     lib = cuda_lib.kernels()
     rows = survey(every=args.every, lib=lib)
+    march = march_frames(lib)
     OUT.mkdir(exist_ok=True)
     report = dict(device=torch.cuda.get_device_name(0), every=args.every, rows=rows,
-                  totals=totals(rows))
+                  totals=totals(rows), march=march)
     (OUT / "replay_traffic.json").write_text(json.dumps(report, indent=1))
     for line in summary(rows):
         print(line, flush=True)
+    for name, row in march.items():
+        print(march_line(name, row), flush=True)
     print(json.dumps(report["totals"]), flush=True)
     if not all(r["bitwise"] for r in rows):
         raise SystemExit("replay_traffic: a replay past the step list differs")

@@ -33,6 +33,7 @@ from relativisticraytracer_tpu_torch.ops import pallas_compact as pc
 from relativisticraytracer_tpu_torch.ops import pallas_march as pm
 from relativisticraytracer_tpu_torch.ops import pallas_sky as ps
 from relativisticraytracer_tpu_torch.ops.camera_rays import rays_from_scalars
+from relativisticraytracer_tpu_torch.paths import default_paths, interpolate_path
 from relativisticraytracer_tpu_torch.parallel.sharding import (
     make_mesh,
     make_sharded_renderer,
@@ -205,6 +206,76 @@ def test_replay_grids_stride_past_one_wave(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("max_steps", [2000, None])
+@pytest.mark.parametrize("sorted_order", [True, False])
+def test_segment_order_kernels_match_their_twin(cuda, sorted_order, max_steps):
+    """The march pass's segment order built on the card (a radix sort in
+    passes of 8 bits: one at a capacity of one step, two at a step cap of
+    2000, four with neither bound) is its plain twin's entry for entry,
+    with the same segments a round, at capacities of one step, a tenth, a
+    third (at least 3 rounds), every step and more, for the longest-first
+    list and the image order."""
+    k, _ = _record_both(cuda)
+    order = None if sorted_order else torch.arange(k.hit.numel(), dtype=torch.int32)
+    n_steps = pc.replay_list(k.total)[1]
+    lib = cuda_lib.kernels()
+    for cap in (1, n_steps // 10, n_steps // 3, n_steps, 1 << 30):
+        plan = pc.replay_plan(k.total, cap, None if order is None else order.to(cuda))
+        lib.reset_launches()
+        got = pc.with_segments(plan, k.rec, max_steps)
+        bits = pc.segment_len_bits(cap, max_steps) + (pc.ROUNDS - 1).bit_length()
+        passes = -(-bits // cuda_lib.RADIX_BITS)
+        assert all(lib.launches[name] == passes for name in cuda_lib.SEGMENT_PASSES)
+        if cap == 1 << 30:
+            assert passes == (2 if max_steps else 4)
+        want = pc.with_segments(pc.replay_plan(k.total.cpu(), cap, order), k.rec.cpu(),
+                                max_steps)
+        assert torch.equal(got.segment_counts.cpu(), want.segment_counts)
+        total = int(want.segment_counts.sum())
+        assert torch.equal(got.segments[:total].cpu(), want.segments[:total])
+        if cap == n_steps // 3:
+            assert int((want.segment_counts > 0).sum()) >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["headline", "skimmer t 9"])
+def test_replay_march_kernel_bitwise_its_twin(cuda, frame):
+    """At a step list of a tenth of the frame's steps (at least 3 rounds),
+    the march kernel writes each round's list bitwise its twin's through
+    the segment order and the per-ray twin's, and the frame's replay is
+    bitwise the plain replay: at the headline pose and at the Horizon
+    Skimmer's densest frame (t = 9 s, ~400 steps a pixel)."""
+    if frame == "headline":
+        pose, t = HEAD, 10.0
+    else:
+        pose, t = interpolate_path(default_paths()[2], 9.0), 9.0
+    scene = SceneConfig()
+    scal = pc.pack_camera_scalars(camera_state_from_pose(*pose), CameraEffects(), t)
+    k = pc._record_cuda(scene, scal, 160, 90, 2000, pc.SLOTS, 64, 128, cuda, None)
+    n_steps = pc.replay_list(k.total)[1]
+    plan = pc.with_segments(pc.replay_plan(k.total, n_steps // 10), k.rec, 2000)
+    rows = plan.rounds.tolist()
+    assert sum(1 for r in rows if r[1]) >= 3
+    lib = cuda_lib.kernels()
+    consts, stream = cuda_lib.scene_consts(scene), cuda_lib.current_stream(cuda)
+    pos, vel, _ = pc.step_list(plan.capacity, cuda)
+    for r, (first, rays, base, steps) in enumerate(rows):
+        if not rays:
+            continue
+        lib.replay_march(consts, k.rec, plan, r, pos, vel, stream)
+        twin = pc._replay_march_segments_plain(scene, k.rec, plan, r)
+        per_ray = pc._replay_march_plain(scene, k.rec, plan.order[first:first + rays].long(),
+                                         plan.offsets[first:first + rays] - base, steps)
+        for want in (twin, per_ray):
+            assert torch.equal(pos[:steps], want[0]) and torch.equal(vel[:steps], want[1])
+    inten, trans = pc._replay(scene, k.rec, t, plan, lib)
+    sel = pc.replay_order(k.total).long()
+    ip, tp = pc._replay_plain(scene, k.rec, t, sel)
+    assert torch.equal(torch.stack(list(inten)).reshape(3, -1)[:, sel], ip)
+    assert torch.equal(trans.reshape(-1)[sel], tp)
+
+
+@pytest.mark.gpu
 def test_render_on_returns_before_the_frame_is_done(cuda):
     """The compact frame program enqueues its whole 1080p frame without
     waiting for the device: an event recorded right after render_on
@@ -301,14 +372,21 @@ def test_renderer_on_the_card_passes_goldens(cuda, name, kw, fx_on):
     assert np.sqrt(np.mean((d / 255.0) ** 2)) < 1e-3
     # no medium: the fused inline march (kernel 4) and the sky kernel, as
     # in the JAX package; else record, the replay's kernels (no cloud pass
-    # without clouds), sky
+    # without clouds), sky, and the segment order's radix passes (two
+    # launches a pass of 8 key bits)
     if not kw.get("enable_disk", True):
         ran = {"march_sky", "sky"}
     else:
         ran = {"record", "sky"} | set(cuda_lib.REPLAY_PASSES)
         if not kw.get("enable_clouds", True):
             ran.discard("replay_shade_cloud")
-    assert lib.launches == {k: int(k in ran) for k in cuda_lib.KERNELS}
+    want = {k: int(k in ran) for k in cuda_lib.KERNELS}
+    if "record" in ran:
+        cap = pc.step_capacity(64 * 48, 400)
+        bits = (pc.segment_len_bits(cap, 400)
+                + (pc.replay_rounds(64 * 48, 400, cap) - 1).bit_length())
+        want.update(dict.fromkeys(cuda_lib.SEGMENT_PASSES, -(-bits // cuda_lib.RADIX_BITS)))
+    assert lib.launches == want
 
 
 def _march_both(dev, kernel, w=96, h=54, steps=2000, t=10.0):
